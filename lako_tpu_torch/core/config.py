@@ -1,14 +1,17 @@
-"""Typed configuration: the part of lako_tpu/core/config.py that serving needs.
+"""Typed configuration: the part of lako_tpu/core/config.py that serving and
+reader training need.
 
 A copy, not an import: ``lako_tpu.core`` pulls in jax when imported. Field
 names and defaults equal the JAX package's (pinned by
 tests/test_torch_serve.py), so a config written for one reads in the other.
+Options the port does not run yet are kept as fields and raise where they are
+used (ROADMAP items named there).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 
@@ -121,3 +124,76 @@ class ReaderDataConfig(_ConfigBase):
         if self.fact_use_way == "concate":
             return self.stream
         return 1 + self.n_context
+
+
+@dataclass(frozen=True)
+class OptimConfig(_ConfigBase):
+    """Optimizer + schedule (train/optim.py)."""
+
+    optim: str = "adamw"  # "adam" | "adamw" | "adafactor" | "adamw8bit"
+    lr: float = 1e-4
+    weight_decay: float = 0.1
+    clip: float = 1.0
+    scheduler: str = "linear"  # "fixed" | "linear"
+    warmup_steps: int = 1000
+    total_steps: int = 1000
+    scheduler_steps: Optional[int] = None
+    min_ratio: float = 0.0
+    fixed_lr: bool = False
+    accumulation_steps: int = 1
+    # Layerwise LR decay over encoder layers named layer_{i}: decay ** (7 - i).
+    layerwise_decay: Optional[float] = None
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-6
+    # None: Adam bias-corrects, AdamW (HF's correct_bias=False) does not.
+    adam_correct_bias: Optional[bool] = None
+
+
+@dataclass(frozen=True)
+class MeshConfig(_ConfigBase):
+    """Device layout: data-parallel, tensor-parallel and pipeline axes. The
+    port trains on one device (ROADMAP item 12)."""
+
+    data: int = -1  # -1: all devices on the data axis
+    model: int = 1
+    pipe: int = 1
+    batch_axis: str = "data"
+    model_axis: str = "model"
+    pipe_axis: str = "pipe"
+
+
+@dataclass(frozen=True)
+class ReaderTrainConfig(_ConfigBase):
+    """Reader training loop (train/reader.py)."""
+
+    model_size: str = "base"
+    per_device_batch_size: int = 8
+    eval_batch_size: int = 8
+    epochs: int = 20
+    early_stop: int = 3
+    # evaluate every k-th epoch; the final epoch always evaluates
+    eval_every: int = 1
+    seed: int = 0
+    eval_max_length: int = 50
+    warmup_fraction: float = 0.06
+    use_remat: bool = True  # activation checkpointing of the encoder blocks
+    remat_policy: Optional[str] = None  # None/'full' | 'dots'
+    dtype: str = "bfloat16"
+    # master-parameter (and so Adam-moment) dtype: "float32" | "bfloat16"
+    param_dtype: str = "float32"
+    profile_dir: Optional[str] = None
+    decode_backend: str = "auto"
+    # "flax" | "scan": one train step in the port (train/reader.py)
+    train_backend: str = "flax"
+    decode_kv_dtype: str = "native"
+    decode_weights_dtype: str = "native"
+    decode_chunk_size: Optional[int] = None
+    decode_self_attn_impl: str = "allslots"
+    pp_microbatches: int = 1
+    pp_schedule: str = "gpipe"
+    data: ReaderDataConfig = field(default_factory=ReaderDataConfig)
+    optim: OptimConfig = field(default_factory=lambda: OptimConfig(lr=4e-5))
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    checkpoint_dir: str = "./checkpoint"
+    name: str = "experiment"

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas kernel K1 of the JAX package:
 //   lako_tpu/ops/flash_streamed.py::streamed_attention -> _streamed_fwd_impl
-//   (body _make_streamed_kernel), forward without the logsumexp output.
+//   (body _make_streamed_kernel), with its optional training statistics.
 //
 // out[b,h,q,:] = softmax_k(S[b,h,q,k]) . v[b,h,k,:], where
 //   S = q.k (unscaled, as T5 folds 1/sqrt(d) into its init) + rel[h,q,k],
@@ -33,6 +33,14 @@
 //   the real keys, as the plain version does.
 // - Keys past Lk (the ragged last tile) get no weight at all; rows past L are
 //   computed on zeros and never stored. Nothing is padded on the host.
+//
+// Statistics for the backward (csrc/flash_streamed_bwd.cu): with a non-null
+// `stats` each row also writes (m, l), its f32 row max and row sum of
+// exp(S - m), where the JAX kernel writes lse = m + log(l). The pair is exact
+// on a fully masked row: there every S is -1e9, so m = -1e9 and l = Lk, and
+// the backward's exp(S - m) / l gives 1/Lk per key. lse would not: at 1e9 an
+// f32 ulp is 64, so log(Lk) is lost and exp(S - lse) is 1 per key. Serving
+// passes null and pays nothing.
 
 #include "common.cuh"
 
@@ -56,7 +64,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
 streamed_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ rel,
                         const uint8_t* __restrict__ key_mask, float* __restrict__ out,
-                        int H, int L, int Lk) {
+                        float2* __restrict__ stats, int H, int L, int Lk) {
   constexpr int DC = D / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
   float* qT = reinterpret_cast<float*>(smem4);
@@ -185,6 +193,8 @@ streamed_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k
     float* og = out + (bh * L + row) * D + tx * DC;
 #pragma unroll
     for (int j = 0; j < DC; ++j) og[j] = acc[i][j] / l[i];
+    // m and l are whole-row values in every thread of the row group
+    if (stats != nullptr && tx == 0) stats[bh * L + row] = make_float2(m[i], l[i]);
   }
 }
 
@@ -239,7 +249,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
 streamed_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const float* __restrict__ rel,
                         const uint8_t* __restrict__ key_mask, bf16* __restrict__ out,
-                        int H, int L, int Lk) {
+                        float2* __restrict__ stats, int H, int L, int Lk) {
   constexpr int QS = D + PAD;  // row stride of qs and ks
   constexpr int VS = TK + PAD;  // row stride of vt
   constexpr int NT = TK / 8;    // 8-key column tiles of S
@@ -378,13 +388,17 @@ streamed_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<uint32_t*>(out + (bh * L + row1) * D + col) =
           pack_bf16(o[j][2] / l[1], o[j][3] / l[1]);
   }
+  if (stats != nullptr && t == 0) {
+    if (row0 < L) stats[bh * L + row0] = make_float2(m[0], l[0]);
+    if (row1 < L) stats[bh * L + row1] = make_float2(m[1], l[1]);
+  }
 }
 
 template <typename T, int D, int THREADS, size_t SMEM>
 int launch(void (*kernel)(const T*, const T*, const T*, const float*, const uint8_t*,
-                          T*, int, int, int),
+                          T*, float2*, int, int, int),
            const void* q, const void* k, const void* v, const void* rel,
-           const void* key_mask, void* out, int B, int H, int L, int Lk,
+           const void* key_mask, void* out, void* stats, int B, int H, int L, int Lk,
            cudaStream_t stream) {
   static bool configured = false;  // once, so later launches can be graph-captured
   if (!configured) {
@@ -397,43 +411,44 @@ int launch(void (*kernel)(const T*, const T*, const T*, const float*, const uint
   kernel<<<grid, THREADS, SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(rel), static_cast<const uint8_t*>(key_mask),
-      static_cast<T*>(out), H, L, Lk);
+      static_cast<T*>(out), static_cast<float2*>(stats), H, L, Lk);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_fma(const void* q, const void* k, const void* v, const void* rel,
-               const void* key_mask, void* out, int B, int H, int L, int Lk,
-               cudaStream_t s) {
+               const void* key_mask, void* out, void* stats, int B, int H, int L,
+               int Lk, cudaStream_t s) {
   return launch<float, D, FMA_THREADS, fma_smem_bytes<D>()>(
-      streamed_fwd_fma_kernel<D>, q, k, v, rel, key_mask, out, B, H, L, Lk, s);
+      streamed_fwd_fma_kernel<D>, q, k, v, rel, key_mask, out, stats, B, H, L, Lk, s);
 }
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, const void* rel,
-               const void* key_mask, void* out, int B, int H, int L, int Lk,
-               cudaStream_t s) {
+               const void* key_mask, void* out, void* stats, int B, int H, int L,
+               int Lk, cudaStream_t s) {
   return launch<bf16, D, MMA_THREADS, mma_smem_bytes<D>()>(
-      streamed_fwd_mma_kernel<D>, q, k, v, rel, key_mask, out, B, H, L, Lk, s);
+      streamed_fwd_mma_kernel<D>, q, k, v, rel, key_mask, out, stats, B, H, L, Lk, s);
 }
 
 }  // namespace
 
 // q, k, v, out: (B,H,L|Lk,D) contiguous in `dtype` (bf16 pointers 16-byte
-// aligned); rel: (H,L,Lk) f32; key_mask: (B,Lk) bool as bytes. Returns a
-// cudaError_t code (0 = launched).
+// aligned); rel: (H,L,Lk) f32; key_mask: (B,Lk) bool as bytes; stats: null,
+// or (B,H,L,2) f32 for (row max, row sum). Returns a cudaError_t code
+// (0 = launched).
 extern "C" int lako_flash_streamed_fwd(const void* q, const void* k, const void* v,
                                        const void* rel, const void* key_mask,
-                                       void* out, int B, int H, int L, int Lk,
-                                       int D, int dtype, void* stream) {
+                                       void* out, void* stats, int B, int H, int L,
+                                       int Lk, int D, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == lako::kFloat32 && D == 64)
-    return launch_fma<64>(q, k, v, rel, key_mask, out, B, H, L, Lk, s);
+    return launch_fma<64>(q, k, v, rel, key_mask, out, stats, B, H, L, Lk, s);
   if (dtype == lako::kFloat32 && D == 128)
-    return launch_fma<128>(q, k, v, rel, key_mask, out, B, H, L, Lk, s);
+    return launch_fma<128>(q, k, v, rel, key_mask, out, stats, B, H, L, Lk, s);
   if (dtype == lako::kBFloat16 && D == 64)
-    return launch_mma<64>(q, k, v, rel, key_mask, out, B, H, L, Lk, s);
+    return launch_mma<64>(q, k, v, rel, key_mask, out, stats, B, H, L, Lk, s);
   if (dtype == lako::kBFloat16 && D == 128)
-    return launch_mma<128>(q, k, v, rel, key_mask, out, B, H, L, Lk, s);
+    return launch_mma<128>(q, k, v, rel, key_mask, out, stats, B, H, L, Lk, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,6 +6,7 @@ nested mapping of arrays; ``jax`` is not imported) onto this package's
 flax ``kernel (in, out)`` becomes ``weight (out, in)``, and ``embedding``
 becomes ``weight``.
 
+``jax_param_paths`` maps the other way, for code that reads the JAX paths.
 ``init_fid_t5`` draws the JAX package's init distributions from a
 ``torch.Generator``. The scales matter: a plain default init overflows
 bfloat16 activations at t5-large.
@@ -14,7 +15,7 @@ bfloat16 activations at t5-large.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -47,6 +48,26 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def jax_param_paths(model: nn.Module) -> Dict[str, str]:
+    """This package's parameter names → the JAX package's parameter paths,
+    ``/``-joined (``t5/encoder/block_0/self_attn/q/kernel``): the inverse of
+    :func:`params_from_jax`'s renaming. The optimizer's no-decay mask and
+    layerwise factors read these paths, as the JAX package's do."""
+    paths: Dict[str, str] = {}
+    for prefix, module in model.named_modules():
+        for leaf, _ in module.named_parameters(recurse=False):
+            path = prefix.split(".") if prefix else []
+            if isinstance(module, Dense):
+                path.append("kernel")
+            elif isinstance(module, nn.Embedding):
+                if path[-1] != "rel_embedding":
+                    path.append("embedding")
+            else:
+                path.append(leaf)
+            paths[f"{prefix}.{leaf}" if prefix else leaf] = "/".join(path)
+    return paths
+
+
 def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
     # flax's default Dense init: truncated normal (2 std) scaled to 1/fan_in
     std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
@@ -55,12 +76,13 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 
 @torch.no_grad()
 def init_fid_t5(cfg: T5Config, generator: torch.Generator,
-                dtype: torch.dtype = torch.float32) -> FiDT5:
+                dtype: torch.dtype = torch.float32, use_remat: bool = False,
+                remat_policy: Optional[str] = None) -> FiDT5:
     """A FiDT5 on ``generator.device`` with the JAX package's init
     distributions (layers.py ``_dense`` stds, relpos std d_model**-0.5,
     shared embedding std 1, norms 1), in eval mode."""
     with torch.device(generator.device):
-        model = FiDT5(cfg, dtype)
+        model = FiDT5(cfg, dtype, use_remat, remat_policy)
     for module in model.modules():
         if isinstance(module, Dense):
             if module.init_std is None:

@@ -6,6 +6,11 @@ float32; each module computes in its ``dtype`` (bfloat16 on the card) and
 casts its weights at use, as flax does. Softmax and norm statistics stay in
 float32. Attention is unscaled (T5 folds 1/sqrt(d) into the q init) and masks
 additively with ``NEG_INF = -1e9``, never -inf.
+
+Dropout sits where the JAX package has it, one :class:`Dropout` module per
+application: attention probabilities on the plain path, the MLP's inner
+activation, and each residual branch of the encoder (2) and decoder (3)
+blocks. Each module is switched by ``self.training``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from lako_tpu_torch.core.config import T5Config
 from lako_tpu_torch.ops.flash_streamed import streamed_attention
 
 NEG_INF = -1e9
+_MASK64 = (1 << 64) - 1
 
 # jax.nn names used by feed_forward_proj; jax.nn.gelu is the tanh approximation
 ACTIVATIONS = {
@@ -34,6 +40,66 @@ def activation(name: str):
     if name not in ACTIVATIONS:
         raise ValueError(f"unsupported activation {name!r}; have {sorted(ACTIVATIONS)}")
     return ACTIVATIONS[name]
+
+
+def _mix(*values: int) -> int:
+    """splitmix64 folded over ``values``: a 63-bit generator seed that
+    changes with any of them."""
+    h = 0
+    for value in values:
+        h = (h + (value & _MASK64) + 0x9E3779B97F4A7C15) & _MASK64
+        h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & _MASK64
+        h ^= h >> 31
+    return h >> 1
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose mask is a function of ``(seed, step, site)``.
+
+    ``site`` numbers the model's Dropout modules (:func:`number_dropout_sites`)
+    and :func:`set_dropout_key` sets ``(seed, step)`` before a training
+    forward. Each application seeds a generator of its own from the three, so
+    a recomputation under activation checkpointing draws the same mask:
+    ``torch.utils.checkpoint`` restores only the default generators' states,
+    and masks drawn from one shared custom generator would differ on the
+    recompute and make the gradients silently wrong. This is the role of
+    ``jax.random.fold_in`` in the JAX package; the bits differ from JAX's.
+    Keeps ``1 - rate`` of the elements scaled by ``1 / (1 - rate)``, as flax's
+    ``nn.Dropout``; the identity in eval mode or at rate 0.
+    """
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.site = 0
+        self.key: Optional[Tuple[int, int]] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.key is None:
+            raise RuntimeError("dropout in training mode needs set_dropout_key(model, "
+                               "seed, step) before the forward")
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed(_mix(*self.key, self.site))
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros((), dtype=x.dtype,
+                                                                     device=x.device))
+
+
+def number_dropout_sites(model: nn.Module) -> None:
+    """Give each Dropout module of ``model`` its site number, in module order."""
+    for site, module in enumerate(m for m in model.modules() if isinstance(m, Dropout)):
+        module.site = site
+
+
+def set_dropout_key(model: nn.Module, seed: int, step: int) -> None:
+    """The ``(seed, step)`` every Dropout module of ``model`` draws its mask
+    from until the next call (the JAX train step's ``fold_in(rng, step)``)."""
+    for module in model.modules():
+        if isinstance(module, Dropout):
+            module.key = (seed, step)
 
 
 class Dense(nn.Module):
@@ -143,6 +209,7 @@ class T5Attention(nn.Module):
         self.k = Dense(cfg.d_model, kv_inner, dtype, cfg.d_model ** -0.5)
         self.v = Dense(cfg.d_model, kv_inner, dtype, cfg.d_model ** -0.5)
         self.o = Dense(inner, cfg.d_model, dtype, inner ** -0.5)
+        self.dropout = Dropout(cfg.dropout_rate)   # attention probabilities
 
     def _split(self, x: torch.Tensor, heads: int) -> torch.Tensor:
         b, l, _ = x.shape
@@ -192,7 +259,7 @@ class T5Attention(nn.Module):
         logits = self._qk(q, k).float()
         if bias is not None:
             logits = logits + bias.float()
-        probs = torch.softmax(logits, dim=-1).to(self.dtype)
+        probs = self.dropout(torch.softmax(logits, dim=-1).to(self.dtype))
         return self.o(self.merge_heads(self._pv(probs, v))), logits
 
 
@@ -208,6 +275,7 @@ class T5MLP(nn.Module):
         else:
             self.wi = Dense(cfg.d_model, cfg.d_ff, dtype, wi_std)
         self.wo = Dense(cfg.d_ff, cfg.d_model, dtype, cfg.d_ff ** -0.5)
+        self.dropout = Dropout(cfg.dropout_rate)   # inner activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -216,7 +284,7 @@ class T5MLP(nn.Module):
             h = act(self.wi_0(x)) * self.wi_1(x)
         else:
             h = activation(cfg.feed_forward_proj)(self.wi(x))
-        return self.wo(h)
+        return self.wo(self.dropout(h))
 
 
 class T5EncoderBlock(nn.Module):
@@ -227,11 +295,13 @@ class T5EncoderBlock(nn.Module):
         self.self_attn = T5Attention(cfg, dtype)
         self.ln_mlp = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, dtype)
         self.mlp = T5MLP(cfg, dtype)
+        self.drop_attn = Dropout(cfg.dropout_rate)
+        self.drop_mlp = Dropout(cfg.dropout_rate)
 
     def forward(self, x, bias, stream_parts=None):
         h, _ = self.self_attn(self.ln_attn(x), bias=bias, stream_parts=stream_parts)
-        x = x + h
-        return x + self.mlp(self.ln_mlp(x))
+        x = x + self.drop_attn(h)
+        return x + self.drop_mlp(self.mlp(self.ln_mlp(x)))
 
 
 class T5DecoderBlock(nn.Module):
@@ -247,16 +317,20 @@ class T5DecoderBlock(nn.Module):
                                           multiquery=cfg.multiquery_cross_attention)
         self.ln_mlp = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, dtype)
         self.mlp = T5MLP(cfg, dtype)
+        self.drop_self = Dropout(cfg.dropout_rate)
+        if has_cross:
+            self.drop_cross = Dropout(cfg.dropout_rate)
+        self.drop_mlp = Dropout(cfg.dropout_rate)
 
     def forward(self, x, enc, self_bias, cross_bias):
         """Teacher-forced block. Returns (x, cross_logits | None)."""
         h, _ = self.self_attn(self.ln_self(x), bias=self_bias)
-        x = x + h
+        x = x + self.drop_self(h)
         cross_logits = None
         if self.has_cross:
             h, cross_logits = self.cross_attn(self.ln_cross(x), kv=enc, bias=cross_bias)
-            x = x + h
-        return x + self.mlp(self.ln_mlp(x)), cross_logits
+            x = x + self.drop_cross(h)
+        return x + self.drop_mlp(self.mlp(self.ln_mlp(x))), cross_logits
 
 
 def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:

@@ -6,41 +6,67 @@ cross-attends over the concatenated ``N*L`` encoder states. The
 cross-attention logits are an optional output of the forward pass (the
 distillation signal).
 
-Encoder self-attention takes the K-streamed kernel (ops/flash_streamed.py)
-when ``use_flash_attention`` is on and ``L >= flash_min_length``, as in the
-JAX package. Shorter sequences would take the whole-block kernel K4, which is
-not ported: on CUDA that case raises rather than run plain attention, and on
-the CPU it runs plain attention, as the JAX package does off the TPU.
+Encoder self-attention takes the K-streamed kernel (ops/flash_streamed.py,
+differentiable) when ``use_flash_attention`` is on and ``L >=
+flash_min_length``, except in training with ``dropout_rate > 0``, exactly the
+JAX package's ``_use_streamed_flash``. Where the JAX package would take the
+whole-block kernel K4 instead (``use_flash_attention``, a shorter sequence,
+and no dropout in the way), the port raises on CUDA, since K4 is not ported,
+and runs plain attention on the CPU, as the JAX package does off the TPU.
 
-Dropout is not ported yet (it comes with the train step, ROADMAP item 2):
-running a config with ``dropout_rate > 0`` in training mode raises.
+Dropout follows ``self.training`` (layers.py ``Dropout``); the train step
+sets its key with ``set_dropout_key``. ``use_remat`` checkpoints each
+encoder block (never the decoder's, as in the JAX package) with
+``torch.utils.checkpoint``, under ``remat_policy`` None/"full" (recompute
+everything) or "dots" (keep the matmul outputs).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from lako_tpu_torch.core.config import T5Config
 from lako_tpu_torch.models.t5.layers import (
     Dense,
+    Dropout,
     RelativePositionBias,
     RMSNorm,
     T5DecoderBlock,
     T5EncoderBlock,
     causal_bias,
     mask_to_bias,
+    number_dropout_sites,
 )
 
+# matmuls without batch dimensions: the dense layers' products, not the
+# attention's batched ones (jax.checkpoint_policies.dots_with_no_batch_dims_saveable)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
-def _no_dropout(module: nn.Module, cfg: T5Config) -> None:
-    if module.training and cfg.dropout_rate > 0.0:
-        raise NotImplementedError(
-            "dropout is not ported yet (ROADMAP item 2); call .eval() or set "
-            "dropout_rate=0.0")
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def resolve_remat_policy(name):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a remat policy
+    name: None/"full" recomputes everything in the backward, "dots" keeps
+    the dense layers' matmul outputs and recomputes the rest."""
+    if name in (None, "full"):
+        return noop_context_fn
+    if name == "dots":
+        return functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    raise ValueError(f"unknown remat policy {name!r}")
 
 
 class _Stack(nn.Module):
@@ -57,37 +83,56 @@ class _Stack(nn.Module):
 
 
 class T5Encoder(_Stack):
-    def __init__(self, config: T5Config, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: T5Config, dtype: torch.dtype = torch.float32,
+                 use_remat: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
         cfg = config
         self.config = cfg
+        self.use_remat = use_remat
+        self.remat_context = resolve_remat_policy(remat_policy)
         self.relpos = RelativePositionBias(cfg, bidirectional=True, dtype=dtype)
         self._add_blocks([T5EncoderBlock(cfg, dtype) for _ in range(cfg.num_layers)])
         self.final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, dtype)
+        self.embed_dropout = Dropout(cfg.dropout_rate)
+        self.final_dropout = Dropout(cfg.dropout_rate)
+
+    def _use_streamed_flash(self, L: int) -> bool:
+        cfg = self.config
+        if not (cfg.use_flash_attention and L >= cfg.flash_min_length):
+            return False
+        return not (self.training and cfg.dropout_rate > 0.0)
+
+    def _run_blocks(self, x, bias, parts):
+        remat = self.use_remat and torch.is_grad_enabled()
+        for block in self.blocks:
+            if remat:
+                # masks come from Dropout's own (seed, step, site) generators,
+                # never the global ones, so there is no RNG state to restore
+                x = checkpoint(block, x, bias, parts, use_reentrant=False,
+                               preserve_rng_state=False, context_fn=self.remat_context)
+            else:
+                x = block(x, bias, parts)
+        return x
 
     def forward(self, embeds: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """embeds: (B, L, H) token embeddings; mask: (B, L) bool."""
         cfg = self.config
-        _no_dropout(self, cfg)
         L = embeds.shape[1]
-        x = embeds
-        if cfg.use_flash_attention and L >= cfg.flash_min_length:
+        x = self.embed_dropout(embeds)
+        if self._use_streamed_flash(L):
             # K-streamed kernel: factored bias, the (B,h,L,L) tensor never exists
             rel = self.relpos(L, L)[0].float().contiguous()   # (h, L, L)
-            parts = (rel, mask.contiguous())
-            for block in self.blocks:
-                x = block(x, None, parts)
+            x = self._run_blocks(x, None, (rel, mask.contiguous()))
         else:
-            if cfg.use_flash_attention and embeds.is_cuda:
+            if (cfg.use_flash_attention and embeds.is_cuda
+                    and not (self.training and cfg.dropout_rate > 0.0)):
                 raise NotImplementedError(
                     f"use_flash_attention with L={L} < flash_min_length="
                     f"{cfg.flash_min_length} needs the whole-block kernel K4 "
                     "(ops/flash_attention.py), not ported yet (ROADMAP kernel "
                     "queue); set flash_min_length <= L or use_flash_attention=False")
-            bias = self.relpos(L, L) + mask_to_bias(mask)
-            for block in self.blocks:
-                x = block(x, bias)
-        return self.final_ln(x)
+            x = self._run_blocks(x, self.relpos(L, L) + mask_to_bias(mask), None)
+        return self.final_dropout(self.final_ln(x))
 
 
 class T5Decoder(_Stack):
@@ -100,25 +145,26 @@ class T5Decoder(_Stack):
         self._add_blocks([T5DecoderBlock(cfg, dtype, has_cross=cfg.has_cross_attention(i))
                           for i in range(cfg.num_decoder_layers)])
         self.final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, dtype)
+        self.embed_dropout = Dropout(cfg.dropout_rate)
+        self.final_dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, embeds, enc, enc_mask, *, self_mask=None,
                 collect_cross_logits: bool = False):
         """Teacher-forced decode. embeds: (B, T, H); enc: (B, K, H); enc_mask:
         (B, K) bool. Returns (hidden (B,T,H), cross_logits (B, layers, heads,
         T, K) or None)."""
-        _no_dropout(self, self.config)
         T = embeds.shape[1]
         self_bias = self.relpos(T, T) + causal_bias(T, T, embeds.device)
         if self_mask is not None:
             self_bias = self_bias + mask_to_bias(self_mask)
         cross_bias = mask_to_bias(enc_mask)
-        x = embeds
+        x = self.embed_dropout(embeds)
         cross_logits = []
         for block in self.blocks:
             x, xl = block(x, enc, self_bias, cross_bias)
             if collect_cross_logits and xl is not None:
                 cross_logits.append(xl)
-        x = self.final_ln(x)
+        x = self.final_dropout(self.final_ln(x))
         stacked = torch.stack(cross_logits, dim=1) if collect_cross_logits else None
         return x, stacked
 
@@ -143,16 +189,18 @@ class T5Decoder(_Stack):
 class T5(nn.Module):
     """Plain T5 conditional generation model (single passage)."""
 
-    def __init__(self, config: T5Config, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: T5Config, dtype: torch.dtype = torch.float32,
+                 use_remat: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
         cfg = config
         self.config = cfg
         self.dtype = dtype
         self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model)
-        self.encoder = T5Encoder(cfg, dtype)
+        self.encoder = T5Encoder(cfg, dtype, use_remat, remat_policy)
         self.decoder = T5Decoder(cfg, dtype)
         if not cfg.tie_word_embeddings:
             self.lm_head = Dense(cfg.d_model, cfg.vocab_size, dtype)
+        number_dropout_sites(self)
 
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
         return F.embedding(ids, self.shared.weight).to(self.dtype)
@@ -189,13 +237,15 @@ def shift_right(labels: torch.Tensor, decoder_start_token_id: int,
 
 
 class FiDT5(nn.Module):
-    """Fusion-in-Decoder T5 over fixed-shape (B, N, L) passage batches."""
+    """Fusion-in-Decoder T5 over fixed-shape (B, N, L) passage batches.
+    Trains in training mode (dropout on), evaluates in eval mode."""
 
-    def __init__(self, config: T5Config, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: T5Config, dtype: torch.dtype = torch.float32,
+                 use_remat: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
         self.config = config
         self.dtype = dtype
-        self.t5 = T5(config, dtype)
+        self.t5 = T5(config, dtype, use_remat, remat_policy)
 
     def encode_passages(self, input_ids: torch.Tensor, mask: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,15 +1,17 @@
 """Build the CUDA kernels under ``lako_tpu_torch/csrc`` at first use.
 
-All ``csrc/*.cu`` files are compiled by one ``nvcc`` call into a shared
-library with a plain C interface, which is loaded with ``ctypes``. The library
-lands in ``build/lako_tpu_torch/`` at the repository root, named by a hash of
-the sources and flags, so an edited source rebuilds and an unchanged one is
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, which is loaded with ``ctypes``. The library lands in
+``build/lako_tpu_torch/`` at the repository root, named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
 loaded as is. Nothing falls back: without ``nvcc`` a build raises with the
-command it could not run.
+commands it could not run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -29,7 +31,7 @@ logger = get_logger(__name__)
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lako_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -59,22 +61,46 @@ def library_path() -> Path:
 
 
 def compile_library(out: Path) -> float:
-    """Run nvcc into ``out``; returns the seconds it took."""
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    nvcc = find_nvcc()
-    cmd = [nvcc or "nvcc", *NVCC_FLAGS, "-o", str(tmp), *cu]
-    if nvcc is None:
+    """Compile every ``.cu`` source at once (one nvcc each), link them into
+    ``out``; returns the seconds it took."""
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    work = out.with_name(f"{out.name}.{os.getpid()}.d")
+    tmp = work / out.name
+    found = find_nvcc()
+    nvcc = found or "nvcc"
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(work / f"{src.stem}.o"), str(src)]
+                for src in cu]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+            *(str(work / f"{src.stem}.o") for src in cu)]
+    if found is None:
         raise RuntimeError(
             "nvcc not found on PATH or in $CUDA_HOME/bin; cannot build the "
-            "CUDA kernels. Command: " + " ".join(cmd))
-    out.parent.mkdir(parents=True, exist_ok=True)
+            "CUDA kernels. Commands: " + "; ".join(" ".join(c) for c in (*compiles, link)))
+    work.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    try:
+        with contextlib.ExitStack() as stack:
+            logs = [stack.enter_context(open(work / f"{src.stem}.log", "w+")) for src in cu]
+            procs = [subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+                     for cmd, log in zip(compiles, logs)]
+            try:
+                for cmd, log, proc in zip(compiles, logs, procs):
+                    if proc.wait() != 0:
+                        log.seek(0)
+                        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: "
+                                           f"{' '.join(cmd)}\n{log.read()}")
+            finally:   # after a failure, stop the compiles still running
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                    proc.wait()
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: "
+                               f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     seconds = time.perf_counter() - t0
     logger.info("built %s in %.1f s", out.name, seconds)
     return seconds

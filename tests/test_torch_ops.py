@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from lako_tpu.ops.decode_cross_attn import (
@@ -21,7 +22,7 @@ from lako_tpu_torch.ops import decode_cross_attn as k3
 from lako_tpu_torch.ops import flash_streamed as k1
 
 
-def _attn_inputs(B, H, L, Lk, D, seed=0):
+def _attn_inputs(B, H, L, Lk, D, seed=0, padding_row=True):
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, H, L, D)).astype(np.float32)
     k = rng.normal(size=(B, H, Lk, D)).astype(np.float32)
@@ -29,7 +30,8 @@ def _attn_inputs(B, H, L, Lk, D, seed=0):
     rel = rng.normal(size=(H, L, Lk)).astype(np.float32)
     mask = rng.random((B, Lk)) < 0.8
     mask[:, 0] = True
-    mask[1] = False          # a padding row: every key masked
+    if padding_row:
+        mask[1] = False      # a padding row: every key masked
     return q, k, v, rel, mask
 
 
@@ -58,10 +60,91 @@ def test_streamed_plain_matches_jax(L, Lk):
     np.testing.assert_allclose(out[live], kern[live], rtol=2e-4, atol=2e-4)
 
 
+def _port_grads(q, k, v, rel, mask, g, fn=None):
+    """Gradients of sum(out * g) in q, k, v, rel through ``fn``."""
+    fn = fn or k1.streamed_attention
+    q, k, v, rel = (t.clone().requires_grad_() for t in _torch(q, k, v, rel))
+    out = fn(q, k, v, rel, torch.from_numpy(mask))
+    return [t.numpy() for t in torch.autograd.grad((out * torch.from_numpy(g)).sum(),
+                                                   (q, k, v, rel))]
+
+
+def _jax_grads(fn, q, k, v, rel, mask, g):
+    return [np.asarray(t) for t in jax.grad(
+        lambda *a: jnp.sum(fn(*a, jnp.asarray(mask)) * g), argnums=(0, 1, 2, 3))(
+            *map(jnp.asarray, (q, k, v, rel)))]
+
+
+def _assert_grads_close(got, want):
+    for name, a, b in zip(["q", "k", "v", "rel"], got, want):
+        if name == "rel":
+            # drel sums dS over the batch: bounded by its own scale, as the
+            # JAX package's test bounds it (tests/test_flash_streamed.py)
+            assert np.abs(a - b).max() <= 3e-3 * np.abs(b).max(), name
+        else:
+            np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("B,H,L,Lk,D", [(3, 2, 300, 330, 16), (2, 2, 37, 45, 8)])
+def test_streamed_gradients_match_jax_kernel(B, H, L, Lk, D):
+    """The backward (plain K2a/K2b/K2c on the CPU) against jax.grad of the
+    interpreted Pallas kernel, on inputs without a fully masked row (the JAX
+    kernel's logsumexp is wrong there; see the next test)."""
+    q, k, v, rel, mask = _attn_inputs(B, H, L, Lk, D, padding_row=False)
+    g = np.random.default_rng(1).normal(size=q.shape).astype(np.float32)
+    kern = lambda *a: jax_streamed(*a, 128, 128, True)  # noqa: E731
+    _assert_grads_close(_port_grads(q, k, v, rel, mask, g), _jax_grads(kern, q, k, v, rel, mask, g))
+
+
+def test_streamed_gradients_on_padding_row():
+    """With a fully masked row, against the gradients of the JAX XLA
+    reference: that row adds nothing to dQ, dK or drel, and dO/Lk per key to
+    dV."""
+    q, k, v, rel, mask = _attn_inputs(3, 2, 40, 44, 8)
+    g = np.random.default_rng(2).normal(size=q.shape).astype(np.float32)
+    got = _port_grads(q, k, v, rel, mask, g)
+    _assert_grads_close(got, _jax_grads(_xla_reference, q, k, v, rel, mask, g))
+    dq, dk, dv, _ = got
+    assert not dq[1].any() and not dk[1].any()
+    np.testing.assert_allclose(dv[1], np.broadcast_to(g[1].sum(axis=1, keepdims=True) / 44,
+                                                      dv[1].shape), rtol=1e-5, atol=1e-6)
+    # the batch without row 1 gives the same drel: that row's dS is 0
+    keep = [0, 2]
+    drel = _port_grads(q[keep], k[keep], v[keep], rel, mask[keep], g[keep])[3]
+    np.testing.assert_allclose(got[3], drel, rtol=1e-5, atol=1e-6)
+
+
+def test_bwd_reference_matches_autograd_of_plain_forward():
+    """streamed_attention_bwd_reference (the kernels' plain version, from the
+    row statistics) equals autograd of streamed_attention_reference, padding
+    row included, at 1e-5; the statistics of that row are exactly
+    (-1e9, Lk)."""
+    q, k, v, rel, mask = _attn_inputs(2, 3, 33, 29, 8)
+    g = np.random.default_rng(3).normal(size=q.shape).astype(np.float32)
+    want = _port_grads(q, k, v, rel, mask, g, fn=k1.streamed_attention_reference)
+    tq, tk, tv, trel, tmask, tg = _torch(q, k, v, rel, mask, g)
+    out, stats = k1.streamed_attention_fwd_reference(tq, tk, tv, trel, tmask)
+    torch.testing.assert_close(out, k1.streamed_attention_reference(tq, tk, tv, trel, tmask),
+                               rtol=1e-6, atol=1e-6)
+    assert stats[1, :, :, 0].eq(-1e9).all() and stats[1, :, :, 1].eq(29).all()
+    got = k1.streamed_attention_bwd_reference(tq, tk, tv, trel, tmask, out, stats, tg)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=1e-5)
+    # the per-kernel wrappers give the same pieces on the CPU
+    dvec = (tg * out).sum(-1)
+    args = (tq, tk, tv, trel, tmask, stats, dvec, tg)
+    dk, dv = k1.streamed_attention_bwd_dkdv(*args)
+    for a, b in zip((k1.streamed_attention_bwd_dq(*args), dk, dv,
+                     k1.streamed_attention_bwd_drel(*args)), got):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_streamed_wrapper_refuses_bad_inputs():
     q, k, v, rel, mask = _torch(*_attn_inputs(2, 2, 8, 8, 4))
-    with pytest.raises(NotImplementedError, match="backward"):
-        k1.streamed_attention(q.requires_grad_(), k, v, rel, mask)
+    # inputs that require grad take the autograd Function, and its backward runs
+    out = k1.streamed_attention(q.requires_grad_(), k, v, rel, mask)
+    (dq,) = torch.autograd.grad(out.sum(), q)
+    assert dq.shape == q.shape and bool(torch.isfinite(dq).all())
     q = q.detach()
     with pytest.raises(ValueError, match="rel_bias"):
         k1.streamed_attention(q, k, v, rel.double(), mask)
@@ -69,7 +152,11 @@ def test_streamed_wrapper_refuses_bad_inputs():
         k1.streamed_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, rel, mask)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         k1.streamed_attention(*(t.to("meta") for t in (q, k, v, rel, mask)))
-    assert k1.streamed_attention.launches == 0   # the CPU path launches nothing
+    with pytest.raises(ValueError, match="stats"):
+        k1.streamed_attention_bwd_dq(q, k, v, rel, mask, torch.zeros(2, 2, 8), (q * q).sum(-1), q)
+    launches = (k1.streamed_attention, k1.streamed_attention_bwd_dkdv,
+                k1.streamed_attention_bwd_dq, k1.streamed_attention_bwd_drel)
+    assert all(f.launches == 0 for f in launches)   # the CPU path launches nothing
 
 
 def _cross_inputs(B=2, h=4, d=16, K=37, seed=0):

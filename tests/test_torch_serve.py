@@ -157,15 +157,18 @@ def test_unported_service_options_raise(services):
     assert psvc.retrieve_facts([{"question": "q"}]) == [[]]
 
 
-@pytest.mark.parametrize("name", ["T5Config", "ReaderDataConfig"])
+@pytest.mark.parametrize("name", ["T5Config", "ReaderDataConfig", "OptimConfig",
+                                  "MeshConfig", "ReaderTrainConfig"])
 def test_copied_configs_match(name):
-    """Same fields, in the same order, with the same defaults."""
+    """Same fields, in the same order, with the same defaults (nested
+    default factories included)."""
     ours, theirs = getattr(port_config, name), getattr(jax_config, name)
 
     def spec(cls):
         return [(f.name, f.default) for f in dataclasses.fields(cls)]
 
     assert spec(ours) == spec(theirs)
+    assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())
     assert dataclasses.asdict(port_config.t5_config_for_size("large")) == \
         dataclasses.asdict(jax_config.t5_config_for_size("large"))
 

@@ -6,9 +6,13 @@ runs its streamed Pallas kernel in interpret mode and the port runs the plain
 version of its CUDA kernel.
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
+from flax import linen as flax_nn
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +22,7 @@ from lako_tpu.models.t5.layers import relative_position_bucket as jax_bucket
 from lako_tpu.models.t5.model import FiDT5 as JaxFiDT5
 from lako_tpu_torch.core.config import T5Config
 from lako_tpu_torch.models.t5 import FiDT5, init_fid_t5, params_from_jax
-from lako_tpu_torch.models.t5.layers import relative_position_bucket
+from lako_tpu_torch.models.t5.layers import Dropout, relative_position_bucket, set_dropout_key
 
 TINY = dict(vocab_size=64, d_model=32, d_kv=8, d_ff=64, num_layers=2,
             num_decoder_layers=2, num_heads=4, relative_attention_num_buckets=8,
@@ -140,7 +144,150 @@ def test_init_fid_t5_distributions():
 
 
 def test_dropout_in_training_mode_raises():
-    model = FiDT5(T5Config(**dict(TINY, dropout_rate=0.1)))
+    """A training forward with dropout needs its (seed, step) key first;
+    with it the model runs and the loss differs from eval mode's."""
+    model = init_fid_t5(T5Config(**dict(TINY, dropout_rate=0.1)),
+                        torch.Generator().manual_seed(0)).train()
     ids, mask, labels = (torch.from_numpy(a) for a in _batch())
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(RuntimeError, match="set_dropout_key"):
         model(ids, mask, labels)
+    set_dropout_key(model, seed=0, step=0)
+    train_loss = model(ids, mask, labels)[0]
+    with torch.no_grad():
+        eval_loss = model.eval()(ids, mask, labels)[0]
+    train_loss = train_loss.detach()
+    assert torch.isfinite(train_loss) and float(train_loss) != float(eval_loss)
+
+
+def _same_weights(cfg_a, cfg_b, **kw):
+    a, b = FiDT5(cfg_a, **kw), FiDT5(cfg_b, **kw)
+    init = init_fid_t5(cfg_a, torch.Generator().manual_seed(4)).state_dict()
+    a.load_state_dict(init)
+    b.load_state_dict(init)
+    return a, b
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_dropout_eval_equals_rate_zero(flash):
+    kw = dict(TINY, use_flash_attention=flash, flash_min_length=16)
+    a, b = _same_weights(T5Config(**dict(kw, dropout_rate=0.3)), T5Config(**kw))
+    t = [torch.from_numpy(x) for x in _batch()]
+    with torch.no_grad():
+        la, lb = a.eval()(*t)[1], b.eval()(*t)[1]
+    torch.testing.assert_close(la, lb, rtol=0, atol=0)
+
+
+def test_dropout_keep_fraction_and_scale():
+    """About 1 - rate of the elements survive, scaled by 1/(1 - rate); the
+    mask is a function of (seed, step, site) alone."""
+    drop = Dropout(0.25).train()
+    drop.key = (7, 3)
+    x = torch.ones(400, 500)
+    y = drop(x)
+    kept = y != 0
+    assert abs(float(kept.float().mean()) - 0.75) < 0.005
+    torch.testing.assert_close(y[kept], torch.full_like(y[kept], 1 / 0.75))
+    assert torch.equal(drop(x), y)
+    other = Dropout(0.25).train()
+    for key, site in [((7, 4), 0), ((8, 3), 0), ((7, 3), 1)]:
+        other.key, other.site = key, site
+        assert not torch.equal(other(x), y), (key, site)
+    assert torch.equal(drop.eval()(x), x)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_dropout_masks_survive_remat(flash):
+    """Same seed and step: use_remat True and False give identical
+    gradients (the checkpoint recompute redraws the same masks). With flash
+    on, training with dropout takes the plain attention path, as in JAX."""
+    kw = dict(TINY, dropout_rate=0.2, use_flash_attention=flash, flash_min_length=16)
+    cfg = T5Config(**kw)
+    a = FiDT5(cfg, use_remat=True)
+    b = FiDT5(cfg, use_remat=False)
+    init = init_fid_t5(cfg, torch.Generator().manual_seed(5)).state_dict()
+    a.load_state_dict(init)
+    b.load_state_dict(init)
+    t = [torch.from_numpy(x) for x in _batch()]
+    grads = []
+    for model in (a, b):
+        model.train()
+        set_dropout_key(model, seed=11, step=2)
+        loss = model(*t)[0]
+        grads.append(torch.autograd.grad(loss, list(model.parameters())))
+    for ga, gb in zip(*grads):
+        torch.testing.assert_close(ga, gb, rtol=0, atol=0)
+    set_dropout_key(b, seed=11, step=3)
+    other = torch.autograd.grad(b(*t)[0], list(b.parameters()))
+    assert any(not torch.equal(x, y) for x, y in zip(other, grads[1]))
+
+
+def test_dropout_sites_match_jax():
+    """Dropout applications per layer in one training forward: 4 per encoder
+    block, 6 per decoder block, 2 per stack outside the blocks, as in the
+    JAX model (counted through flax's method interceptor)."""
+    ids, mask, labels = _batch()
+    jm = JaxFiDT5(JaxT5Config(**dict(TINY, dropout_rate=0.1)))
+    params = jm.init(jax.random.PRNGKey(0), ids, mask, labels)["params"]
+    want = collections.Counter()
+
+    def count(next_fun, args, kwargs, context):
+        if (isinstance(context.module, flax_nn.Dropout) and context.method_name == "__call__"
+                and kwargs.get("deterministic") is False):
+            path = context.module.path
+            want[(path[1], next((p for p in path if p.startswith("block_")), None))] += 1
+        return next_fun(*args, **kwargs)
+
+    with flax_nn.intercept_methods(count):
+        jm.apply({"params": params}, ids, mask, labels, deterministic=False,
+                 rngs={"dropout": jax.random.PRNGKey(1)})
+
+    model = FiDT5(T5Config(**dict(TINY, dropout_rate=0.1))).train()
+    set_dropout_key(model, seed=0, step=0)
+    got = collections.Counter()
+    for name, module in model.named_modules():
+        if isinstance(module, Dropout):
+            parts = name.split(".")
+            key = (parts[1], next((p for p in parts if p.startswith("block_")), None))
+            module.register_forward_hook(lambda *a, key=key: got.update([key]))
+    model(*(torch.from_numpy(a) for a in (ids, mask, labels)))
+    assert got == want and want[("encoder", "block_0")] == 4
+    assert len({m.site for m in model.modules() if isinstance(m, Dropout)}) == sum(got.values())
+
+
+class _CountMatmuls(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.count += func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_remat_policies(flash):
+    """use_remat under remat_policy None, "full" and "dots" gives the
+    gradients of no remat; "full" recomputes the encoder's dense matmuls in
+    the backward and "dots" keeps them (JAX's
+    dots_with_no_batch_dims_saveable); an unknown policy raises."""
+    cfg = T5Config(**dict(TINY, use_flash_attention=flash, flash_min_length=16))
+    init = init_fid_t5(cfg, torch.Generator().manual_seed(6)).state_dict()
+    t = [torch.from_numpy(x) for x in _batch()]
+    grads, matmuls = {}, {}
+    for remat, policy in [(False, None), (True, None), (True, "full"), (True, "dots")]:
+        model = FiDT5(cfg, use_remat=remat, remat_policy=policy)
+        model.load_state_dict(init)
+        loss = model.train()(*t)[0]
+        with _CountMatmuls() as counter:
+            grads[remat, policy] = torch.autograd.grad(loss, list(model.parameters()))
+        matmuls[remat, policy] = counter.count
+    for key, g in grads.items():
+        for a, b in zip(g, grads[False, None]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=str(key))
+    # "full" recomputes the blocks' dense layers (q, k, v, o, wi; the
+    # checkpoint stops before wo, whose output the backward does not need)
+    assert matmuls[True, "full"] >= matmuls[False, None] + 4 * cfg.num_layers
+    assert matmuls[True, None] == matmuls[True, "full"]
+    assert matmuls[True, "dots"] == matmuls[False, None]
+    with pytest.raises(ValueError, match="remat policy"):
+        FiDT5(cfg, use_remat=True, remat_policy="bogus")
