@@ -6,27 +6,48 @@
 1. Prints the card (nvidia-smi name and power limit, torch's device name).
 2. Builds the CUDA kernels from ``lako_tpu_torch/csrc`` with nvcc.
 3. Checks each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes and in its working types, and times both with CUDA
-   graphs of back-to-back calls (device time per call, warm L2).
-   The backward kernels (K2a/K2b/K2c) are checked directly and through the
-   autograd Function, with fully masked rows, and timed against the plain
-   autograd backward.
-4. Serving path: 20 requests through ``LakoService`` at the full width of
+   main path's shapes and in its working types, and times the kernel, the
+   plain version and, where one exists, the one PyTorch call that computes
+   the same function (``library_ms``; scaled_dot_product_attention with a
+   float mask for the attention kernels), with CUDA graphs of back-to-back
+   calls (device time per call, warm L2). Beside each time it computes the
+   bound: the larger of the bytes moved over 3.35 TB/s and the operations
+   over the type's peak (H100 SXM data sheet).
+   K1 streamed attention and its backward K2a/K2b/K2c (directly and through
+   the autograd Function); K3 int8 decode cross-attention; K4 whole-block
+   attention with a dense bias (full and broadcast, fully masked rows); K5
+   the one-pass 8-bit Adam update (codes, scales and u bitwise equal to the
+   plain version, at a t5-large embedding leaf, a dense kernel leaf and the
+   JAX package's micro shape); K6 its requantization-free fragment.
+4. Floor proof: the port of the JAX package's 8-bit Adam micro-benchmark
+   (``lako_tpu_torch.bench.adam8_micro``) times K5, K6 and the plain
+   bf16-moment Adam update at the micro shape and prints the share of K5's
+   time that the requantization takes.
+5. Serving path: 20 requests through ``LakoService`` at the full width of
    t5-large (random weights from a seeded generator, bf16, int8 cross K/V,
-   the encoder through the streamed kernel and decode cross-attention through
-   the int8 kernel), one more over HTTP; checks that each kernel was launched
-   the expected number of times, then answers the same requests without the
-   kernels and checks that the greedy tokens and the encoder states agree.
-5. Training path, at t5-large width (B=8, N=2, L=130, remat, AdamW):
-   a. one train step's loss and gradients with the streamed kernels against
-      the same step without them, in float32 and in bfloat16 (bf16 gradients
-      held to the float32 ones, no further than the plain bf16 run);
-   b. ``train_reader`` for 2 epochs on a synthetic fixture with an eval at
-      the end of each: the loss falls, EM is in [0, 1], the history has the
-      JAX package's keys, and K1/K2a/K2b/K2c ran 48/24/24/24 times a step;
-   c. train-step examples/s with the kernels and without (host clock,
-      synchronized, first step excluded).
-6. Prints the kernel summary as one JSON line, the nvidia-smi line again,
+   decode cross-attention through K3), one more over HTTP, first with the
+   encoder on the streamed kernel K1 (flash_min_length=128), then on the
+   whole-block kernel K4 (the default flash_min_length=512 > L=130, where
+   the JAX package takes its fused Pallas kernel); each time checks that
+   each kernel was launched the expected number of times, and that the
+   greedy tokens, the next token under teacher forcing and the encoder
+   states agree with the no-kernel service.
+6. Training path, at t5-large width (B=8, N=2, L=130, remat), on each of
+   the two encoder routes:
+   a. one train step's loss and gradients with the kernels against the
+      same step without them, in float32 and in bfloat16 (bf16 gradients
+      held to the float32 ones, no further than the plain bf16 run), the
+      relative-position embedding's gradient included;
+   b. (whole-block route) one AdamW8bit update of every parameter tensor
+      from the same gradients, K5 against its plain version;
+   c. ``train_reader`` for 2 epochs on a synthetic fixture with an eval at
+      the end of each (AdamW on the streamed route, AdamW8bit on the
+      whole-block route): the loss falls, EM is in [0, 1], the history has
+      the JAX package's keys, and each kernel ran as often as expected;
+   d. train-step examples/s with the kernels and without, and AdamW against
+      AdamW8bit with its peak device memory (host clock, synchronized,
+      first step excluded).
+7. Prints the kernel summary as one JSON line, the nvidia-smi line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0. Without a CUDA device it exits
@@ -49,6 +70,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 K1_TOL = dict(bf16=(6e-2, 5e-3), f32=(2e-4, 1e-5))   # (max abs, mean abs)
@@ -67,6 +89,15 @@ TIMED_STEPS = 5
 TOKEN_AGREEMENT_MIN = 0.9
 ENCODER_REL_ERR_MAX = 5e-2                           # bf16 through 24 layers
 EMBEDDING_SCALE = 0.02
+K5_DRAWS = (1, 7)                                    # step counts of the K5 checks
+ADAM8_MICRO = (179_688, 256)                         # scripts/bench_adam8_micro.py
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): memory
+# bytes/s, and operations/s by type ("f32" = CUDA-core float32)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+# operations per element, counted in csrc/adam8.cu: K5 ~46 float and ~30
+# integer (codes, dither hashes), K6 ~16 float and ~6 integer
+K5_OPS, K6_OPS = 76, 22
 ANIMALS = ["cat", "dog", "cow", "duck", "frog", "bee", "owl", "wolf", "horse", "goat"]
 SOUNDS = ["meow", "woof", "moo", "quack", "croak", "buzz", "hoot", "howl", "neigh", "bleat"]
 
@@ -97,6 +128,52 @@ def device_ms(fn, calls: int = 20, replays: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * calls)
+
+
+def event_ms(fn, calls: int = 5) -> float:
+    """Device time per call of a function too slow for a CUDA graph to help:
+    ``calls`` calls between CUDA events, after one warm-up call."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float, kind: str):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the memory rate and the operations over the peak."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def entry(name, source, replaces, max_err, kern, plain, n_bytes, ops, kind, library):
+    bound_ms, bound_by = bound(n_bytes, ops, kind)
+    log(f"  {name}: bound {bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.3f} G operations), kernel {kern / bound_ms:.1f}x the bound; "
+        f"library call " + ("none" if library is None else f"{library:.4f} ms"))
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": max_err, "ms": kern, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library}
+
+
+def dense_bias(rel, mask, dtype=torch.float32):
+    """The (B,H,L,Lk) additive bias a dense-mask call needs: rel + -1e9 at
+    masked keys."""
+    return (rel[None] + torch.where(mask[:, None, None, :], 0.0, -1e9)).to(dtype).contiguous()
+
+
+def sdpa(q, k, v, bias):
+    """The library call: unscaled attention with a float mask."""
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=1.0)
 
 
 def compare(name, out, ref, max_tol, mean_tol=None):
@@ -146,15 +223,19 @@ def check_streamed(dev):
         results[label] = (compare(label, out, ref, *tol), args)
     label = cases[0][0]
     max_err, args = results[label]
+    q, k, v, rel, mask = args
+    bias = dense_bias(rel, mask, q.dtype)
     plain = device_ms(lambda: k1.streamed_attention_reference(*args))
     kern = device_ms(lambda: k1.streamed_attention(*args))
+    library = device_ms(lambda: sdpa(q, k, v, bias))
     plain = (plain + device_ms(lambda: k1.streamed_attention_reference(*args))) / 2
-    log(f"  time at {label}: kernel {kern:.4f} ms, plain {plain:.4f} ms "
+    log(f"  time at {label}: kernel {kern:.4f} ms, plain {plain:.4f} ms, "
+        f"scaled_dot_product_attention with the dense bf16 bias {library:.4f} ms "
         f"(device time per call, CUDA graph of 20 calls)")
-    return {"name": "streamed_attention", "route": "cuda",
-            "source": "lako_tpu_torch/csrc/flash_streamed_fwd.cu",
-            "replaces": "lako_tpu/ops/flash_streamed.py:173",
-            "max_abs_err": max_err, "ms": kern, "plain_ms": plain}
+    B, H, L, D = q.shape
+    return entry("streamed_attention", "lako_tpu_torch/csrc/flash_streamed_fwd.cu",
+                 "lako_tpu/ops/flash_streamed.py:173", max_err, kern, plain,
+                 nbytes(*args, q), 4 * B * H * L * k.shape[2] * D, "bf16", library)
 
 
 def compare_bwd(label, got, want, dtype):
@@ -237,21 +318,39 @@ def check_streamed_bwd(dev):
     def kernel_fwd_bwd():
         torch.autograd.grad(k1.streamed_attention(*leaves, mask), leaves, dout)
 
+    q, k, v, rel = (t.detach() for t in leaves)
+    lib_leaves = [q.clone().requires_grad_(), k.clone().requires_grad_(),
+                  v.clone().requires_grad_(), dense_bias(rel, mask, q.dtype).requires_grad_()]
+
+    def library_fwd():
+        return sdpa(*lib_leaves)
+
+    def library_fwd_bwd():
+        torch.autograd.grad(library_fwd(), lib_leaves, dout)
+
     fwd = device_ms(plain_fwd)
     both = device_ms(plain_fwd_bwd)
     k2 = device_ms(k2_all)
     k_both = device_ms(kernel_fwd_bwd)
+    library = device_ms(library_fwd_bwd) - device_ms(library_fwd)
     log(f"  K2a+K2b+K2c {k2:.4f} ms vs the plain autograd backward {both - fwd:.4f} ms "
         f"(plain forward+backward {both:.4f} ms less its forward {fwd:.4f} ms); forward+"
-        f"backward through the Function (K1 with statistics + K2) {k_both:.4f} ms")
+        f"backward through the Function (K1 with statistics + K2) {k_both:.4f} ms; the "
+        f"backward of scaled_dot_product_attention (dq, dk, dv and the bias gradient) "
+        f"{library:.4f} ms")
+    B, H, L, D = q.shape
+    work = B * H * L * k.shape[2] * D
+    reads = nbytes(*args)
     entries = []
-    for name, idx, replaces in (("dkdv", (1, 2), ":289"), ("dq", (0,), ":319"),
-                                ("drel", (3,), ":344")):
-        entries.append({"name": f"streamed_attention_bwd_{name}", "route": "cuda",
-                        "source": "lako_tpu_torch/csrc/flash_streamed_bwd.cu",
-                        "replaces": f"lako_tpu/ops/flash_streamed.py{replaces}",
-                        "max_abs_err": max(errs[i] for i in idx),
-                        "ms": times[name][0], "plain_ms": times[name][1]})
+    for name, idx, replaces, writes, ops in (
+            ("dkdv", (1, 2), ":289", nbytes(k, v), 8 * work),
+            ("dq", (0,), ":319", nbytes(q), 6 * work),
+            ("drel", (3,), ":344", nbytes(rel), 4 * work)):
+        entries.append(entry(f"streamed_attention_bwd_{name}",
+                             "lako_tpu_torch/csrc/flash_streamed_bwd.cu",
+                             f"lako_tpu/ops/flash_streamed.py{replaces}",
+                             max(errs[i] for i in idx), times[name][0], times[name][1],
+                             reads + writes, ops, "bf16", library))
     return entries
 
 
@@ -282,12 +381,173 @@ def check_decode_cross(dev):
         plain = (plain + device_ms(lambda: k3.reference(*args))) / 2
         log(f"  time at {label}: kernel {kern:.4f} ms, plain {plain:.4f} ms "
             f"(device time per call, CUDA graph of 20 calls)")
-        timed[B] = (err, kern, plain)
-    err, kern, plain = timed[8]
-    return {"name": "fused_decode_cross_attention", "route": "cuda",
-            "source": "lako_tpu_torch/csrc/decode_cross_attn.cu",
-            "replaces": "lako_tpu/ops/decode_cross_attn.py:82",
-            "max_abs_err": err, "ms": kern, "plain_ms": plain}
+        timed[B] = (err, kern, plain, nbytes(*args, out), 4 * B * h * d * K)
+    err, kern, plain, n_bytes, ops = timed[8]
+    return entry("fused_decode_cross_attention", "lako_tpu_torch/csrc/decode_cross_attn.cu",
+                 "lako_tpu/ops/decode_cross_attn.py:82", err, kern, plain, n_bytes, ops,
+                 "bf16", None)
+
+
+def check_fused(dev):
+    from lako_tpu_torch.ops import flash_attention as k4
+
+    log("K4 fused_attention (csrc/fused_attention.cu) vs plain:")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    cases = [("(16,16,130,64) bf16, f32 bias, 4 fully masked rows", (16, 16, 130, 130, 64),
+              torch.bfloat16, 4, None),
+             ("(16,16,130,64) f32, f32 bias, 4 fully masked rows", (16, 16, 130, 130, 64),
+              torch.float32, 4, None),
+             ("(3,2,77,64) Lk=200 bf16, broadcast (1,2,77,200) bias", (3, 2, 77, 200, 64),
+              torch.bfloat16, 1, (1, 2, 77, 200)),
+             ("(3,2,77,64) Lk=200 f32, broadcast (1,2,77,200) bias", (3, 2, 77, 200, 64),
+              torch.float32, 1, (1, 2, 77, 200))]
+    first = None
+    for label, shape, dtype, masked, cut in cases:
+        q, k, v, rel, mask = attn_inputs(gen, dev, *shape, dtype, masked)
+        bias = dense_bias(rel, mask)
+        if cut is not None:
+            bias = bias[tuple(slice(0, n) for n in cut)].contiguous()
+        out = k4.fused_attention(q, k, v, bias)
+        ref = k4.fused_attention_reference(q, k, v, bias)
+        torch.cuda.synchronize()
+        err = compare(label, out, ref, *K1_TOL["bf16" if dtype == torch.bfloat16 else "f32"])
+        if first is None:
+            first = (err, q, k, v, bias)
+    err, q, k, v, bias = first
+    bias16 = bias.to(q.dtype)
+    plain = device_ms(lambda: k4.fused_attention_reference(q, k, v, bias))
+    kern = device_ms(lambda: k4.fused_attention(q, k, v, bias))
+    kern = (kern + device_ms(lambda: k4.fused_attention(q, k, v, bias))) / 2
+    library = device_ms(lambda: sdpa(q, k, v, bias16))
+    plain = (plain + device_ms(lambda: k4.fused_attention_reference(q, k, v, bias))) / 2
+    log(f"  time at {cases[0][0]}: kernel {kern:.4f} ms, plain {plain:.4f} ms, "
+        f"scaled_dot_product_attention with the bias in bf16 {library:.4f} ms (device time "
+        f"per call, CUDA graph of 20 calls)")
+    B, H, L, D = q.shape
+    return entry("fused_attention", "lako_tpu_torch/csrc/fused_attention.cu",
+                 "lako_tpu/ops/flash_attention.py:81", err, kern, plain,
+                 nbytes(q, k, v, bias, q), 4 * B * H * L * k.shape[2] * D, "bf16", library)
+
+
+def adam8_state(gen, dev, n):
+    """A mid-training 8-bit state for n elements: random codes and scales."""
+    nb = -(-n // 256)
+    mq = torch.randint(-127, 128, (nb, 256), generator=gen, device=dev, dtype=torch.int8)
+    vq = torch.randint(0, 256, (nb, 256), generator=gen, device=dev, dtype=torch.uint8)
+    ms = torch.rand(nb, 1, generator=gen, device=dev) * 1e-3
+    vs = torch.rand(nb, 1, generator=gen, device=dev) * 1e-6
+    return mq, ms, vq, vs
+
+
+def compare_adam8(label, got, want, exact_u):
+    """K5's outputs against the plain version's: codes and scales bitwise,
+    u bitwise or within rtol 2e-6 (the bias correction's expf and logf)."""
+    u, w = got[0].float(), want[0].float()
+    u_err = float(((u - w).abs() / w.abs().clamp_min(1e-30)).max())
+    codes = [bool(torch.equal(a, b)) for a, b in zip(got[1:], want[1:])]
+    ok = all(codes) and (bool(torch.equal(got[0], want[0])) if exact_u else u_err <= 2e-6)
+    log(f"  {label}: codes and scales (mq, ms, vq, vs) bitwise equal {codes}; u max rel "
+        f"err {u_err:.3e} ({'bitwise' if exact_u else 'rtol 2e-6'}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K5 disagrees with its plain version at {label}")
+    return float((u - w).abs().max())
+
+
+def check_adam8(dev):
+    from lako_tpu_torch.ops import adam8_kernel as k5
+
+    log("K5 fused_adam8_update and K6 adam8_ema_fragment (csrc/adam8.cu) vs plain:")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-6, stochastic_round=True, seed=0x8B17)
+    leaves = [("t5-large shared embedding (32128,1024) g f32", (32128, 1024), torch.float32,
+               False),
+              ("t5-large mlp/wi kernel (4096,1024) g f32, transposed", (4096, 1024),
+               torch.float32, True),
+              (f"micro {ADAM8_MICRO} g bf16", ADAM8_MICRO, torch.bfloat16, False)]
+    max_err, micro = 0.0, None
+    for label, shape, dtype, transposed in leaves:
+        g = (torch.randn(shape, generator=gen, device=dev) * 1e-3).to(dtype)
+        state = adam8_state(gen, dev, g.numel())
+        for count in K5_DRAWS:
+            for correct in (False, True):
+                args = (g, *state, count)
+                kw = dict(hyper, correct_bias=correct, leaf_salt=7, transposed=transposed)
+                got = k5.fused_adam8_update(*args, **kw)
+                torch.cuda.synchronize()
+                want = k5.fused_adam8_update_reference(*args, **kw)
+                err = compare_adam8(f"{label}, step {count}, correct_bias={correct}", got,
+                                    want, exact_u=not correct)
+                max_err = max(max_err, err)
+                del got, want
+        if shape == ADAM8_MICRO:
+            micro = (g, state)
+    g, state = micro
+    kw = dict(hyper, correct_bias=False, leaf_salt=7)
+    u = k5.adam8_ema_fragment(g, *state)
+    torch.cuda.synchronize()
+    u_plain = k5.adam8_ema_fragment_reference(g, *state)
+    k6_ok = bool(torch.equal(u, u_plain))
+    k6_err = float((u.float() - u_plain.float()).abs().max())
+    log(f"  K6 at {ADAM8_MICRO} g bf16: u bitwise equal to its plain version {k6_ok}")
+    if not k6_ok:
+        raise AssertionError("K6 disagrees with its plain version")
+
+    def k5_call():
+        return k5.fused_adam8_update(g, *state, 3, **kw)
+
+    def k6_call():
+        return k5.adam8_ema_fragment(g, *state)
+
+    k5_ms = device_ms(k5_call)
+    k6_ms = device_ms(k6_call)
+    k5_plain = event_ms(lambda: k5.fused_adam8_update_reference(g, *state, 3, **kw))
+    k6_plain = event_ms(lambda: k5.adam8_ema_fragment_reference(g, *state))
+    k5_ms = (k5_ms + device_ms(k5_call)) / 2
+    k6_ms = (k6_ms + device_ms(k6_call)) / 2
+    log(f"  time at {ADAM8_MICRO}: K5 {k5_ms:.4f} ms (plain {k5_plain:.4f} ms), K6 "
+        f"{k6_ms:.4f} ms (plain {k6_plain:.4f} ms) (kernels: CUDA graph of 20 calls; plain "
+        f"versions: CUDA events around 5 calls)")
+    n = g.numel()
+    out5 = k5_call()
+    k5_bytes = nbytes(g, *state) + nbytes(*out5)
+    k6_bytes = nbytes(g, *state) + nbytes(u)
+    return [entry("fused_adam8_update", "lako_tpu_torch/csrc/adam8.cu",
+                  "lako_tpu/ops/adam8_kernel.py:147", max_err, k5_ms, k5_plain, k5_bytes,
+                  K5_OPS * n, "f32", None),
+            entry("adam8_ema_fragment", "lako_tpu_torch/csrc/adam8.cu",
+                  "scripts/bench_adam8_micro.py:105", k6_err, k6_ms, k6_plain, k6_bytes,
+                  K6_OPS * n, "f32", None)]
+
+
+def run_floor_proof(dev):
+    """The 8-bit Adam micro-benchmark (lako_tpu_torch.bench.adam8_micro), the
+    path that runs K6: K5 with and without its dither against its
+    requantization-free fragment K6 and the plain bf16-moment Adam update;
+    returns its launches."""
+    from lako_tpu_torch.bench import adam8_micro as micro
+
+    log(f"floor proof: lako_tpu_torch.bench.adam8_micro at {micro.SHAPE}, g bf16")
+    reset_counts()
+    result = micro.run(dev)
+    launches = {"micro": read_counts()}
+    calls = 1 + micro.N_LO + micro.N_HI          # warm-up, then N_LO and N_HI chained calls
+    check_counts("the floor proof", launches["micro"],
+                 {"fused_adam8_update": 2 * calls, "adam8_ema_fragment": calls})
+    fp = result["floor_proof"]
+    log(f"  K5 {result['fused_kernel_ms']:.4f} ms (without the dither "
+        f"{result['fused_kernel_no_dither_ms']:.4f} ms), K6 "
+        f"{result['requant_free_fragment_ms']:.4f} ms, the bf16-moment Adam update in plain "
+        f"PyTorch {result['bf16_adam_ms']:.4f} ms ({result['method']})")
+    log(f"  the requantization's share of K5, (K5 - K6) / K5 = {fp['requant_share']:.3f}; the "
+        f"dither's cost {fp['dither_cost_ms']:.4f} ms; K5 at "
+        f"{result['fused_kernel_ms'] / fp['k5_bytes_bound_ms']:.2f}x its bytes bound "
+        f"{fp['k5_bytes_bound_ms']:.4f} ms; scaled to t5-large's {micro.T5_LARGE_PARAMS / 1e6:.1f}M "
+        f"parameters K5 {fp['t5_large_kernel_ms']:.2f} ms a step, K6 "
+        f"{fp['t5_large_requant_free_ms']:.2f} ms")
+    times = [v for k, v in result.items() if k.endswith("_ms")]
+    if not all(math.isfinite(t) and t > 0 for t in times):
+        raise AssertionError(f"the floor proof measured {times}")
+    return launches
 
 
 def make_requests(n: int):
@@ -312,17 +572,62 @@ def post(port: int, request: dict):
         return json.loads(resp.read())
 
 
+def counters():
+    """Every kernel wrapper, by the name the summary line gives it."""
+    from lako_tpu_torch.ops import adam8_kernel as k5
+    from lako_tpu_torch.ops import decode_cross_attn as k3
+    from lako_tpu_torch.ops import flash_attention as k4
+    from lako_tpu_torch.ops import flash_streamed as k1
+
+    return {"streamed_attention": k1.streamed_attention,
+            "streamed_attention_bwd_dkdv": k1.streamed_attention_bwd_dkdv,
+            "streamed_attention_bwd_dq": k1.streamed_attention_bwd_dq,
+            "streamed_attention_bwd_drel": k1.streamed_attention_bwd_drel,
+            "fused_decode_cross_attention": k3.fused_decode_cross_attention,
+            "fused_attention": k4.fused_attention,
+            "fused_adam8_update": k5.fused_adam8_update,
+            "adam8_ema_fragment": k5.adam8_ema_fragment}
+
+
+def reset_counts() -> None:
+    for c in counters().values():
+        c.launches = 0
+
+
+def read_counts() -> dict:
+    return {n: c.launches for n, c in counters().items()}
+
+
+def check_counts(what, launches, expected):
+    """Every kernel's launches in a run against the expected counts (0 for
+    a kernel the run must not reach)."""
+    want = {n: expected.get(n, 0) for n in launches}
+    log(f"  launches in {what}: {{{', '.join(f'{n}: {c}' for n, c in launches.items() if c)}}}"
+        f"; expected {{{', '.join(f'{n}: {c}' for n, c in want.items() if c)}}}, 0 elsewhere")
+    if launches != want:
+        raise AssertionError(f"{what} did not run each kernel as expected")
+
+
+def serving_t5(route: str):
+    """t5-large at vocab 32128: encoder attention on the streamed kernel
+    (flash_min_length=128 <= L), the whole-block kernel (the default
+    flash_min_length=512 > L) or plain attention."""
+    from lako_tpu_torch.core.config import t5_config_for_size
+
+    t5 = t5_config_for_size("large", vocab_size=32128, dropout_rate=0.0,
+                            use_flash_attention=route != "plain")
+    return t5.replace(flash_min_length=128) if route == "streamed" else t5
+
+
 def run_slice(dev):
-    from lako_tpu_torch.core.config import ReaderDataConfig, t5_config_for_size
+    """The serving path on both encoder routes; returns each route's launches."""
+    from lako_tpu_torch.core.config import ReaderDataConfig
     from lako_tpu_torch.data import ReaderCollator, ReaderDataset
     from lako_tpu_torch.models.t5 import init_fid_t5
-    from lako_tpu_torch.ops.decode_cross_attn import fused_decode_cross_attention
-    from lako_tpu_torch.ops.flash_streamed import streamed_attention
     from lako_tpu_torch.serve import LakoService, ServiceConfig, make_http_server
     from lako_tpu_torch.text.tokenizer import WordVocabTokenizer
 
-    t5 = t5_config_for_size("large", vocab_size=32128, dropout_rate=0.0,
-                            use_flash_attention=True, flash_min_length=128)
+    t5 = serving_t5("streamed")
     cfg = ServiceConfig(batch_size=8, max_length=50, n_context=10,
                         data=ReaderDataConfig(), decode_backend="engine",
                         decode_kv_dtype="int8", decode_fused_cross=True)
@@ -350,15 +655,13 @@ def run_slice(dev):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
-        streamed_attention.launches = 0
-        fused_decode_cross_attention.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         examples, tokens = service.generate_tokens(requests)
         seconds = time.perf_counter() - t0
         answers = tok.batch_decode(tokens)
         over_http = post(server.server_address[1], requests[7])
-        launches = {"streamed_attention": streamed_attention.launches,
-                    "fused_decode_cross_attention": fused_decode_cross_attention.launches}
+        launches = {"streamed": read_counts()}
     finally:
         server.shutdown()
         server.server_close()
@@ -366,13 +669,11 @@ def run_slice(dev):
 
     batches = 3 + 1                              # 8 + 8 + 4 requests, then 1 over HTTP
     steps = cfg.max_length - 1
-    expected = {"streamed_attention": batches * t5.num_layers,
-                "fused_decode_cross_attention": batches * t5.num_decoder_layers * steps}
     log(f"  20 requests in {seconds:.3f} s: {20 / seconds:.2f} answers/s "
         f"(host clock, 3 batches, bf16, one request per answer)")
-    log(f"  launches in the served run: {launches}, expected {expected}")
-    if launches != expected:
-        raise AssertionError("the serving path did not run each kernel as expected")
+    check_counts("the served run (streamed route)", launches["streamed"],
+                 {"streamed_attention": batches * t5.num_layers,
+                  "fused_decode_cross_attention": batches * t5.num_decoder_layers * steps})
     if tokens.shape != (20, steps) or tokens.min() < 0 or tokens.max() >= t5.vocab_size:
         raise AssertionError(f"bad token array {tokens.shape} "
                              f"[{tokens.min()}, {tokens.max()}]")
@@ -382,46 +683,76 @@ def run_slice(dev):
     log(f"  HTTP answer equals answer_batch's: {over_http[0]['answer'] == answers[7]}")
     log(f"  first answers: {answers[:2]!r}")
 
-    plain_t5 = t5.replace(use_flash_attention=False)
     plain_cfg = dataclasses.replace(cfg, decode_fused_cross=False)
-    plain = LakoService(plain_cfg, plain_t5, params, tok, device=dev)
-    before = dict(launches)
+    plain = LakoService(plain_cfg, serving_t5("plain"), params, tok, device=dev)
+    reset_counts()
     _, plain_tokens = plain.generate_tokens(requests)
-    if (streamed_attention.launches, fused_decode_cross_attention.launches) != \
-            tuple(before.values()):
-        raise AssertionError("the no-kernel configuration launched a kernel")
-    agreement = float((tokens == plain_tokens).mean())
-    log(f"  token agreement with the no-kernel configuration (same int8 K/V): "
-        f"{agreement:.4f} (min {TOKEN_AGREEMENT_MIN}); the tokens hold "
-        f"{len(np.unique(tokens))} distinct ids, "
-        f"{float((tokens == t5.pad_token_id).mean()):.3f} of them pad")
-    if agreement < TOKEN_AGREEMENT_MIN:
-        raise AssertionError("kernel and no-kernel configurations disagree")
+    check_counts("the no-kernel configuration", read_counts(), {})
 
-    # The encoder states, which the K1 kernel produces, compared directly.
     ds = ReaderDataset(examples, cfg.data)
     batch = ReaderCollator(cfg.data, tok)([ds[i] for i in range(cfg.batch_size)])
     ids = torch.from_numpy(batch.passage_ids).to(dev)
     pmask = torch.from_numpy(batch.passage_mask).to(dev)
     with torch.inference_mode():
-        enc_kernel = service.model.encode_passages(ids, pmask)[0].float()
         enc_plain = plain.model.encode_passages(ids, pmask)[0].float()
-    rel = float((enc_kernel - enc_plain).abs().mean() / enc_plain.abs().mean())
-    log(f"  encoder states ({t5.num_layers} layers, bf16), kernel vs plain attention: mean abs "
-        f"err / mean abs = {rel:.3e} (max {ENCODER_REL_ERR_MAX}), max abs err "
-        f"{float((enc_kernel - enc_plain).abs().max()):.3e}")
-    if not (rel <= ENCODER_REL_ERR_MAX and bool(torch.isfinite(enc_kernel).all())):
-        raise AssertionError("encoder states through K1 disagree with plain attention")
+
+    first_labels = torch.from_numpy(plain_tokens[:cfg.batch_size]).long().to(dev)
+    with torch.inference_mode():
+        plain_next = plain.model(ids, pmask, first_labels)[1].argmax(-1)
+
+    def agree(name, route_tokens, route_service):
+        """The route's greedy tokens against the no-kernel service's; the
+        next token under teacher forcing on the no-kernel tokens (first
+        batch, the dense decoder on both sides, so only the encoder
+        differs); the encoder states."""
+        same = route_tokens == plain_tokens
+        agreement = float(same.mean())
+        first = [int(np.argmin(row)) if not row.all() else len(row) for row in same]
+        with torch.inference_mode():
+            enc = route_service.model.encode_passages(ids, pmask)[0].float()
+            next_tok = route_service.model(ids, pmask, first_labels)[1].argmax(-1)
+        forced = float((next_tok == plain_next).float().mean())
+        rel = float((enc - enc_plain).abs().mean() / enc_plain.abs().mean())
+        log(f"  {name}: greedy token agreement with the no-kernel configuration (same int8 "
+            f"K/V): {agreement:.4f}; first position that differs, per request: {first}; "
+            f"the tokens hold {len(np.unique(route_tokens))} distinct ids, "
+            f"{float((route_tokens == t5.pad_token_id).mean()):.3f} of them pad (min "
+            f"{TOKEN_AGREEMENT_MIN})")
+        log(f"  {name}: next-token agreement under teacher forcing on the no-kernel tokens "
+            f"({next_tok.numel()} positions): {forced:.4f} (min {TOKEN_AGREEMENT_MIN})")
+        log(f"  {name}: encoder states ({t5.num_layers} layers, bf16), kernel vs plain "
+            f"attention: mean abs err / mean abs = {rel:.3e} (max {ENCODER_REL_ERR_MAX}), "
+            f"max abs err {float((enc - enc_plain).abs().max()):.3e}")
+        if agreement < TOKEN_AGREEMENT_MIN or forced < TOKEN_AGREEMENT_MIN:
+            raise AssertionError(f"{name}: kernel and no-kernel configurations disagree")
+        if not (rel <= ENCODER_REL_ERR_MAX and bool(torch.isfinite(enc).all())):
+            raise AssertionError(f"{name}: encoder states disagree with plain attention")
+
+    agree("streamed route (K1)", tokens, service)
+    del service, model
+
+    # the reference kernel route: the JAX default flash_min_length sends L=130 to K4
+    fused_t5 = serving_t5("fused")
+    log(f"slice, whole-block route: use_flash_attention with flash_min_length="
+        f"{fused_t5.flash_min_length} > L={cfg.data.text_maxlength}, so every encoder "
+        f"layer takes K4 (csrc/fused_attention.cu)")
+    fused = LakoService(cfg, fused_t5, params, tok, device=dev)
+    fused.answer_batch(requests[:1])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    _, fused_tokens = fused.generate_tokens(requests)
+    seconds = time.perf_counter() - t0
+    launches["fused"] = read_counts()
+    log(f"  20 requests in {seconds:.3f} s: {20 / seconds:.2f} answers/s (host clock, "
+        f"3 batches)")
+    check_counts("the served run (whole-block route)", launches["fused"],
+                 {"fused_attention": 3 * fused_t5.num_layers,
+                  "fused_decode_cross_attention": 3 * fused_t5.num_decoder_layers * steps})
+    log(f"  whole-block route (K4): token agreement with the streamed route (K1): "
+        f"{float((fused_tokens == tokens).mean()):.4f}")
+    agree("whole-block route (K4)", fused_tokens, fused)
     return launches
-
-
-def train_counters():
-    from lako_tpu_torch.ops import flash_streamed as k1
-
-    return {"streamed_attention": k1.streamed_attention,
-            "streamed_attention_bwd_dkdv": k1.streamed_attention_bwd_dkdv,
-            "streamed_attention_bwd_dq": k1.streamed_attention_bwd_dq,
-            "streamed_attention_bwd_drel": k1.streamed_attention_bwd_drel}
 
 
 def train_fixture():
@@ -442,11 +773,23 @@ def train_fixture():
         make_examples(EVAL_EXAMPLES, n_facts=5, seed=SEED + 100)
 
 
-def train_t5(tok, flash: bool):
+def train_t5(tok, route: str):
+    """t5-large at the fixture's vocabulary, dropout 0, encoder attention on
+    the streamed kernels (flash_min_length=128), the whole-block kernel K4 (the
+    default 512) or plain attention."""
     from lako_tpu_torch.core.config import t5_config_for_size
 
-    return t5_config_for_size("large", vocab_size=tok.vocab_size, dropout_rate=0.0,
-                              use_flash_attention=flash, flash_min_length=128)
+    t5 = t5_config_for_size("large", vocab_size=tok.vocab_size, dropout_rate=0.0,
+                            use_flash_attention=route != "plain")
+    return t5.replace(flash_min_length=128) if route == "streamed" else t5
+
+
+# the kernels each train step launches, per encoder layer, on each route
+STEP_LAUNCHES = {"streamed": {"streamed_attention": 2, "streamed_attention_bwd_dkdv": 1,
+                              "streamed_attention_bwd_dq": 1, "streamed_attention_bwd_drel": 1},
+                 "fused": {"fused_attention": 2}}
+ROUTE_NAMES = {"streamed": "streamed kernels K1, K2a/K2b/K2c (flash_min_length=128)",
+               "fused": "whole-block kernel K4 (flash_min_length=512)"}
 
 
 def first_batch(cfg, tok, examples, dev):
@@ -471,51 +814,54 @@ def grad_errors(got, want):
     return rel, math.sqrt(num / den)
 
 
-def check_train_step(dev, cfg, tok, batch):
-    """One train step's loss and gradients, streamed kernels vs plain
-    attention, from the same init and batch. float32: the two must agree
-    within STEP_TOL. bfloat16: the loss within STEP_TOL; the gradients are
-    held to the float32 plain gradients, and the kernel run may be no
-    further from them than BF16_NOISE_RATIO times the plain bf16 run is
-    (worst tensor and all tensors), since two bf16 runs that round in
-    different places differ by bf16's own noise."""
+def step_grads(dev, tok, route, dtype, batch):
+    """Loss and gradients of one train step from the seeded init, with its
+    kernel launches."""
     from lako_tpu_torch.models.t5 import init_fid_t5
     from lako_tpu_torch.models.t5.layers import set_dropout_key
     from lako_tpu_torch.train.reader import model_params
 
-    counters = train_counters()
-    layers = train_t5(tok, True).num_layers
+    model = init_fid_t5(train_t5(tok, route), torch.Generator(device=dev).manual_seed(SEED),
+                        dtype, use_remat=True)
+    params = model_params(model)
+    model.train()
+    set_dropout_key(model, SEED, 0)
+    reset_counts()
+    loss = model(*batch)[0]
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    return float(loss.detach()), dict(zip(params, grads)), read_counts()
+
+
+def check_train_step(dev, tok, batch, route):
+    """One train step's loss and gradients, kernels vs plain attention, from
+    the same init and batch. float32: the two must agree within STEP_TOL.
+    bfloat16: the loss within STEP_TOL; the gradients are held to the float32
+    plain gradients, and the kernel run may be no further from them than
+    BF16_NOISE_RATIO times the plain bf16 run is (worst tensor and all
+    tensors), since two bf16 runs that round in different places differ by
+    bf16's own noise. The relative-position embedding, which only the
+    attention kernel's bias gradient feeds, must get a nonzero gradient."""
+    layers = train_t5(tok, route).num_layers
+    per_step = {n: c * layers for n, c in STEP_LAUNCHES[route].items()}
     relpos = "t5/encoder/relpos/rel_embedding"
     reference = None   # the float32 plain gradients
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        results = {}
-        for flash in (True, False):
-            model = init_fid_t5(train_t5(tok, flash), torch.Generator(device=dev).manual_seed(SEED),
-                                dtype, use_remat=True)
-            params = model_params(model)
-            model.train()
-            set_dropout_key(model, SEED, 0)
-            before = {n: c.launches for n, c in counters.items()}
-            loss = model(*batch)[0]
-            grads = torch.autograd.grad(loss, list(params.values()))
-            torch.cuda.synchronize()
-            launched = {n: c.launches - before[n] for n, c in counters.items()}
-            want = ([2 * layers] + [layers] * 3) if flash else [0] * 4
-            if list(launched.values()) != want:
-                raise AssertionError(f"train step launches {launched}, expected {want}")
-            results[flash] = (float(loss.detach()), dict(zip(params, grads)))
-            del model, params, loss, grads
-        (lk, gk), (lp, gp) = results[True], results[False]
+        lk, gk, launched = step_grads(dev, tok, route, dtype, batch)
+        check_counts(f"the {dtype_name} train step", launched, per_step)
+        lp, gp, launched = step_grads(dev, tok, "plain", dtype, batch)
+        check_counts(f"the {dtype_name} plain train step", launched, {})
         loss_err = abs(lk - lp) / abs(lp)
         rel, total = grad_errors(gk, gp)
         worst = max(rel, key=rel.get)
         loss_tol, grad_tol = STEP_TOL[dtype_name]
         log(f"  {dtype_name}: loss kernels {lk:.6f} vs plain {lp:.6f} (rel err {loss_err:.3e}, "
             f"bound {loss_tol:g}); gradients kernels vs plain: worst tensor {rel[worst]:.3e} at "
-            f"{worst}, all tensors {total:.3e}, {relpos} {rel[relpos]:.3e} (|g| "
-            f"{float(gp[relpos].norm()):.3e}); {len(rel)} tensors; launches K1 {2 * layers}, "
-            f"K2a/K2b/K2c {layers} each, as expected")
-        ok = loss_err <= loss_tol and math.isfinite(lk)
+            f"{worst}, all tensors {total:.3e}, {relpos} {rel[relpos]:.3e} (|g| kernels "
+            f"{float(gk[relpos].float().norm()):.3e}, plain {float(gp[relpos].norm()):.3e}); "
+            f"{len(rel)} tensors")
+        ok = (loss_err <= loss_tol and math.isfinite(lk)
+              and float(gk[relpos].float().norm()) > 0)
         if dtype == torch.float32:
             ok = ok and rel[worst] <= grad_tol
             reference = gp
@@ -530,41 +876,83 @@ def check_train_step(dev, cfg, tok, batch):
             ok = ok and wk <= BF16_NOISE_RATIO * wp and tk <= BF16_NOISE_RATIO * tp
         if not ok:
             raise AssertionError(f"{dtype_name} train step: kernels disagree with plain attention")
-        del results, gk, gp
+        del gk, gp
         gc.collect()
         torch.cuda.empty_cache()
+    return reference
 
 
-def run_train_reader(dev, cfg, tok, train, evals):
-    """train_reader at t5-large width through the kernels; returns its launches."""
+def check_adam8_step(dev, grads):
+    """Two AdamW8bit moment updates of every t5-large parameter tensor from
+    the same gradients, K5 (the transform's CUDA route) against its plain
+    version leaf by leaf: u, codes and scales bitwise equal."""
+    from lako_tpu_torch.ops.adam8_kernel import fused_adam8_update_reference
+    from lako_tpu_torch.train.optim8 import is_transposed, leaf_order, scale_by_adam_8bit
+
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-6, correct_bias=False, stochastic_round=True,
+                 seed=0x8B17)
+    tx = scale_by_adam_8bit(**{k: v for k, v in hyper.items() if k != "seed"})
+    state = tx.init(grads)
+    order = leaf_order(grads)
+    for count in (1, 2):
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        u, new = tx.update(grads, state)
+        end.record()
+        torch.cuda.synchronize()
+        launched = read_counts()["fused_adam8_update"]
+        same = 0
+        for i, path in enumerate(order):
+            g = grads[path]
+            want = fused_adam8_update_reference(
+                g, state.mu[path].q, state.mu[path].scale, state.nu[path].q,
+                state.nu[path].scale, count, leaf_salt=i, transposed=is_transposed(path, g),
+                **hyper)
+            got = (u[path], new.mu[path].q, new.mu[path].scale, new.nu[path].q,
+                   new.nu[path].scale)
+            same += all(torch.equal(a, b) for a, b in zip(got, want))
+        n = sum(g.numel() for g in grads.values())
+        log(f"  AdamW8bit update {count} of {len(order)} tensors ({n / 1e6:.1f}M elements): "
+            f"K5 launched {launched} times in {start.elapsed_time(end):.2f} ms (CUDA events "
+            f"around the update, host issue included); {same}/{len(order)} tensors bitwise "
+            f"equal to the plain version (u, codes, scales)")
+        if launched != len(order) or same != len(order):
+            raise AssertionError("the AdamW8bit update disagrees with its plain version")
+        state = new
+    q8 = sum(nbytes(m.q, m.scale) for m in (*state.mu.values(), *state.nu.values()))
+    log(f"  8-bit moment state {q8 / 1e9:.3f} GB against {8 * n / 1e9:.3f} GB of float32 "
+        f"moments (counted from the tensors)")
+
+
+def run_train_reader(dev, cfg, tok, train, evals, route):
+    """train_reader at t5-large width on one route; returns its launches."""
     from lako_tpu_torch.train.reader import train_reader
 
-    counters = train_counters()
-    t5 = train_t5(tok, True)
+    t5 = train_t5(tok, route)
     log(f"train_reader: t5-large ({t5.num_layers}+{t5.num_decoder_layers} layers, d_model "
-        f"{t5.d_model}, {t5.num_heads} heads, vocab {t5.vocab_size}), dtype {cfg.dtype}, "
-        f"param_dtype {cfg.param_dtype}, remat, AdamW lr {cfg.optim.lr} wd "
-        f"{cfg.optim.weight_decay} clip {cfg.optim.clip}, B={cfg.per_device_batch_size}, "
-        f"N={cfg.data.n_passages}, L={cfg.data.text_maxlength}, {len(train)} train / "
-        f"{len(evals)} eval examples, {cfg.epochs} epochs")
-    for c in counters.values():
-        c.launches = 0
+        f"{t5.d_model}, {t5.num_heads} heads, vocab {t5.vocab_size}), {ROUTE_NAMES[route]}, "
+        f"dtype {cfg.dtype}, param_dtype {cfg.param_dtype}, remat, {cfg.optim.optim} lr "
+        f"{cfg.optim.lr} wd {cfg.optim.weight_decay} clip {cfg.optim.clip}, "
+        f"B={cfg.per_device_batch_size}, N={cfg.data.n_passages}, L={cfg.data.text_maxlength}, "
+        f"{len(train)} train / {len(evals)} eval examples, {cfg.epochs} epochs")
+    reset_counts()
     t0 = time.perf_counter()
     result = train_reader(cfg, train, evals, tok, t5_config=t5, save_checkpoints=False,
                           device=dev)
     seconds = time.perf_counter() - t0
-    launches = {n: c.launches for n, c in counters.items()}
+    launches = read_counts()
     steps = result.final_step
     eval_batches = -(-len(evals) // cfg.eval_batch_size) * len(result.history)
-    expected = {n: t5.num_layers * (2 * steps + eval_batches) if n == "streamed_attention"
-                else t5.num_layers * steps for n in counters}
+    expected = {n: c * t5.num_layers * steps for n, c in STEP_LAUNCHES[route].items()}
+    attention = "streamed_attention" if route == "streamed" else "fused_attention"
+    expected[attention] += t5.num_layers * eval_batches
+    if cfg.optim.optim == "adamw8bit":
+        expected["fused_adam8_update"] = len(result.state.params) * steps
     log(f"  {steps} steps and {len(result.history)} evals in {seconds:.1f} s; history "
         f"{[{k: round(v, 4) for k, v in h.items()} for h in result.history]}")
-    log(f"  launches {launches}, expected {expected} (per step: K1 {2 * t5.num_layers}, "
-        f"K2a/K2b/K2c {t5.num_layers}; plus K1 {t5.num_layers} per eval batch)")
+    check_counts(f"train_reader ({route} route, {cfg.optim.optim})", launches, expected)
     losses = [h["loss"] for h in result.history]
-    if launches != expected:
-        raise AssertionError("the training path did not run each kernel as expected")
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         raise AssertionError(f"the loss did not fall: {losses}")
     if any(sorted(h) != ["em", "epoch", "loss", "seconds"] for h in result.history):
@@ -577,17 +965,21 @@ def run_train_reader(dev, cfg, tok, train, evals):
     return launches
 
 
-def train_examples_per_s(dev, cfg, tok, batch, flash: bool) -> float:
-    """Examples/s of the train step (host clock around synchronized steps,
-    the first step excluded)."""
+def train_rate(dev, cfg, tok, batch, route, optim_name):
+    """(examples/s, peak device GB) of the train step (host clock around
+    synchronized steps, the first step excluded; the peak over the model,
+    its optimizer state and the steps)."""
     from lako_tpu_torch.models.t5 import init_fid_t5
     from lako_tpu_torch.train.optim import make_optimizer
     from lako_tpu_torch.train.reader import make_reader_train_step, model_params
     from lako_tpu_torch.train.state import TrainState
 
-    model = init_fid_t5(train_t5(tok, flash), torch.Generator(device=dev).manual_seed(SEED),
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = init_fid_t5(train_t5(tok, route), torch.Generator(device=dev).manual_seed(SEED),
                         torch.bfloat16, use_remat=True)
-    tx = make_optimizer(cfg.optim.replace(warmup_steps=0, total_steps=100))
+    tx = make_optimizer(cfg.optim.replace(optim=optim_name, warmup_steps=0, total_steps=100))
     state = TrainState.create(model_params(model), tx)
     step = make_reader_train_step(model)
     state, loss = step(state, *batch, SEED)
@@ -599,13 +991,13 @@ def train_examples_per_s(dev, cfg, tok, batch, flash: bool) -> float:
     seconds = time.perf_counter() - t0
     if not math.isfinite(float(loss)):
         raise AssertionError("non-finite loss in the timed train steps")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
     del model, state, step
-    gc.collect()
-    torch.cuda.empty_cache()
-    return cfg.per_device_batch_size * TIMED_STEPS / seconds
+    return cfg.per_device_batch_size * TIMED_STEPS / seconds, peak
 
 
 def run_training(dev):
+    """The training path on both routes; returns each route's launches."""
     from lako_tpu_torch.core.config import ReaderTrainConfig
 
     cfg = ReaderTrainConfig(model_size="large", per_device_batch_size=8, eval_batch_size=8,
@@ -613,16 +1005,45 @@ def run_training(dev):
                             use_remat=True, dtype="bfloat16", param_dtype="float32", seed=SEED)
     tok, train, evals = train_fixture()
     batch = first_batch(cfg, tok, train, dev)
+    launches = {}
     log("one train step at t5-large width (B=8, N=2, L=130, remat), streamed kernels "
         "(flash_min_length=128) vs plain attention, same init and batch:")
-    check_train_step(dev, cfg, tok, batch)
-    launches = run_train_reader(dev, cfg, tok, train, evals)
-    rates = [train_examples_per_s(dev, cfg, tok, batch, flash)
-             for flash in (True, False, True, False)]
-    log(f"  train step examples/s (bf16 compute, f32 masters, remat, B=8; host clock, "
-        f"synchronized, {TIMED_STEPS} steps after the first): with kernels "
+    check_train_step(dev, tok, batch, "streamed")
+    launches["streamed"] = run_train_reader(dev, cfg, tok, train, evals, "streamed")
+    rates = [train_rate(dev, cfg, tok, batch, route, "adamw")[0]
+             for route in ("streamed", "plain", "streamed", "plain")]
+    log(f"  train step examples/s (bf16 compute, f32 masters, remat, B=8, AdamW; host clock, "
+        f"synchronized, {TIMED_STEPS} steps after the first): with the streamed kernels "
         f"{rates[0]:.2f}, {rates[2]:.2f}; without {rates[1]:.2f}, {rates[3]:.2f}")
+
+    log("reference kernel route: one train step at t5-large width, whole-block kernel K4 "
+        "(the default flash_min_length=512 > L=130) vs plain attention, same init and batch:")
+    grads = check_train_step(dev, tok, batch, "fused")
+    log("one AdamW8bit update at t5-large from the float32 gradients above, K5 vs plain:")
+    check_adam8_step(dev, grads)
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["fused"] = run_train_reader(
+        dev, cfg.replace(optim=cfg.optim.replace(optim="adamw8bit")), tok, train, evals, "fused")
+    runs = [(name, train_rate(dev, cfg, tok, batch, "fused", name))
+            for name in ("adamw", "adamw8bit", "adamw8bit", "adamw")]
+    log("  train step on the whole-block route (bf16 compute, f32 masters, remat, B=8; "
+        f"{TIMED_STEPS} steps after the first), examples/s and peak device memory "
+        "(torch.cuda.max_memory_allocated): "
+        + "; ".join(f"{name} {rate:.2f} ex/s, {peak:.2f} GB" for name, (rate, peak) in runs))
     return launches
+
+
+# the main-path run each kernel's launch count comes from: (phase, route)
+LAUNCHES_FROM = {"streamed_attention": ("training", "streamed"),
+                 "streamed_attention_bwd_dkdv": ("training", "streamed"),
+                 "streamed_attention_bwd_dq": ("training", "streamed"),
+                 "streamed_attention_bwd_drel": ("training", "streamed"),
+                 "fused_decode_cross_attention": ("serving", "streamed"),
+                 "fused_attention": ("training", "fused"),
+                 "fused_adam8_update": ("training", "fused"),
+                 "adam8_ema_fragment": ("floor_proof", "micro")}
 
 
 def main() -> int:
@@ -646,15 +1067,21 @@ def main() -> int:
     _build.load_library()
     log(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
 
-    kernels = [check_streamed(dev), *check_streamed_bwd(dev), check_decode_cross(dev)]
-    launches = run_slice(dev)                 # the serving path: K1 and K3
+    kernels = [check_streamed(dev), *check_streamed_bwd(dev), check_decode_cross(dev),
+               check_fused(dev), *check_adam8(dev)]
+    runs = {"floor_proof": run_floor_proof(dev)}   # K5 and K6
     gc.collect()
     torch.cuda.empty_cache()
-    launches.update(run_training(dev))        # the training path: K1 and K2a/K2b/K2c
-    log(f"launches in the training path's train_reader run (K1 there, K3 in the serving "
-        f"run): {launches}")
-    for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
+    runs["serving"] = run_slice(dev)            # K1 or K4, and K3
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["training"] = run_training(dev)        # K1 + K2a/K2b/K2c, or K4 + K5
+    for entry_ in kernels:
+        phase, route = LAUNCHES_FROM[entry_["name"]]
+        entry_["launches"] = runs[phase][route][entry_["name"]]
+    log(f"launches: {({e['name']: e['launches'] for e in kernels})} (K1 and K2 from the "
+        f"streamed route's train_reader run, K3 from the served run, K4 and K5 from the "
+        f"whole-block route's train_reader run, K6 from the floor proof)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -45,8 +45,8 @@ class T5Config(_ConfigBase):
     decoder_start_token_id: int = 0
     # Route encoder self-attention through a fused kernel. Sequences
     # >= flash_min_length take the K-streamed CUDA kernel
-    # (ops/flash_streamed.py); shorter ones would take the whole-block
-    # kernel, which is not ported yet and raises on CUDA.
+    # (ops/flash_streamed.py), shorter ones the whole-block kernel
+    # (ops/flash_attention.py).
     use_flash_attention: bool = False
     flash_min_length: int = 512
     # Tile sizes of the JAX streamed kernel. Kept so that configs read the

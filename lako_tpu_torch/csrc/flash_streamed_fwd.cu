@@ -205,31 +205,14 @@ constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr int PAD = 8;  // bf16 row padding: fragment reads hit 32 distinct banks
 
 using bf16 = __nv_bfloat16;
+using lako::ld_pair;
+using lako::mma_bf16;
+using lako::pack_bf16;
 
 template <int D>
 constexpr size_t mma_smem_bytes() {
   // qs [TQ][D+PAD], ks [TK][D+PAD], vt [D][TK+PAD] (V transposed)
   return sizeof(bf16) * (size_t)(TQ * (D + PAD) + TK * (D + PAD) + D * (TK + PAD));
-}
-
-// d += a (16x16, row-major fragment) * b (16x8, col-major fragment)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two consecutive bf16 in shared memory as one register (lower index low)
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // rows [r0, r0+64) x D of a (rows, D) bf16 matrix into smem [64][D+PAD],

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lako_tpu_torch.core.config import T5Config
+from lako_tpu_torch.ops.flash_attention import fused_attention
 from lako_tpu_torch.ops.flash_streamed import streamed_attention
 
 NEG_INF = -1e9
@@ -194,7 +195,7 @@ class T5Attention(nn.Module):
     """Multi-head attention, T5 flavor: no 1/sqrt(d) scaling, f32 softmax,
     additive bias on the logits. ``forward`` returns ``(output, logits)``: the
     pre-softmax logits are the capture point for cross-attention
-    distillation (None when the streamed kernel ran)."""
+    distillation (None when an attention kernel ran)."""
 
     def __init__(self, config: T5Config, dtype: torch.dtype, multiquery: bool = False):
         super().__init__()
@@ -243,11 +244,14 @@ class T5Attention(nn.Module):
 
     def forward(self, hidden: torch.Tensor, kv: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
-                stream_parts: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                stream_parts: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                allow_fused: bool = False):
         """bias: additive logits bias (1|B, heads|1, q, k) that already holds
         the key masking. stream_parts: (rel_bias (h, q, k) f32, key_mask
         (B, k) bool), the factored bias of the K-streamed kernel; bias must
-        be None then."""
+        be None then. allow_fused: take the whole-block kernel K4 under
+        ``use_flash_attention`` unless dropout applies (no logits output)."""
+        cfg = self.config
         q = self.split_heads(self.q(hidden))
         k, v = self.project_kv(hidden if kv is None else kv)
         if stream_parts is not None:
@@ -255,6 +259,10 @@ class T5Attention(nn.Module):
             rel, key_mask = stream_parts
             out = streamed_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                      rel, key_mask)
+            return self.o(self.merge_heads(out)), None
+        if (allow_fused and cfg.use_flash_attention
+                and not (self.training and cfg.dropout_rate > 0.0)):
+            out = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(), bias)
             return self.o(self.merge_heads(out)), None
         logits = self._qk(q, k).float()
         if bias is not None:
@@ -299,7 +307,8 @@ class T5EncoderBlock(nn.Module):
         self.drop_mlp = Dropout(cfg.dropout_rate)
 
     def forward(self, x, bias, stream_parts=None):
-        h, _ = self.self_attn(self.ln_attn(x), bias=bias, stream_parts=stream_parts)
+        h, _ = self.self_attn(self.ln_attn(x), bias=bias, stream_parts=stream_parts,
+                              allow_fused=True)
         x = x + self.drop_attn(h)
         return x + self.drop_mlp(self.mlp(self.ln_mlp(x)))
 

@@ -9,10 +9,12 @@ distillation signal).
 Encoder self-attention takes the K-streamed kernel (ops/flash_streamed.py,
 differentiable) when ``use_flash_attention`` is on and ``L >=
 flash_min_length``, except in training with ``dropout_rate > 0``, exactly the
-JAX package's ``_use_streamed_flash``. Where the JAX package would take the
-whole-block kernel K4 instead (``use_flash_attention``, a shorter sequence,
-and no dropout in the way), the port raises on CUDA, since K4 is not ported,
-and runs plain attention on the CPU, as the JAX package does off the TPU.
+JAX package's ``_use_streamed_flash``. Under ``use_flash_attention`` with a
+shorter sequence (the default ``flash_min_length`` is 512, so L=130 lands
+here) and no dropout in the way, it takes the whole-block kernel K4
+(ops/flash_attention.py) with the dense ``(B, h, L, L)`` bias, where the JAX
+package takes its fused Pallas kernel; on CPU tensors K4's wrapper runs its
+plain version.
 
 Dropout follows ``self.training`` (layers.py ``Dropout``); the train step
 sets its key with ``set_dropout_key``. ``use_remat`` checkpoints each
@@ -116,7 +118,6 @@ class T5Encoder(_Stack):
 
     def forward(self, embeds: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """embeds: (B, L, H) token embeddings; mask: (B, L) bool."""
-        cfg = self.config
         L = embeds.shape[1]
         x = self.embed_dropout(embeds)
         if self._use_streamed_flash(L):
@@ -124,13 +125,7 @@ class T5Encoder(_Stack):
             rel = self.relpos(L, L)[0].float().contiguous()   # (h, L, L)
             x = self._run_blocks(x, None, (rel, mask.contiguous()))
         else:
-            if (cfg.use_flash_attention and embeds.is_cuda
-                    and not (self.training and cfg.dropout_rate > 0.0)):
-                raise NotImplementedError(
-                    f"use_flash_attention with L={L} < flash_min_length="
-                    f"{cfg.flash_min_length} needs the whole-block kernel K4 "
-                    "(ops/flash_attention.py), not ported yet (ROADMAP kernel "
-                    "queue); set flash_min_length <= L or use_flash_attention=False")
+            # (B, h, L, L) bias; under use_flash_attention the blocks take K4
             x = self._run_blocks(x, self.relpos(L, L) + mask_to_bias(mask), None)
         return self.final_dropout(self.final_ln(x))
 

@@ -121,13 +121,20 @@ def load_library() -> ctypes.CDLL:
         return _library[0]
 
 
+def signature(n_pointers: int, n_ints: int, n_uints: int = 0, n_floats: int = 0):
+    """ctypes argtypes of a C entry taking n_pointers ``void*``, n_ints
+    ``int``, n_uints ``uint32_t`` and n_floats ``float``, in that order, then
+    the ``cudaStream_t``."""
+    return ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+            + [ctypes.c_uint32] * n_uints + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
+
+
 @functools.cache
-def bind(name: str, n_pointers: int, n_ints: int):
-    """C entry ``name``(n_pointers void*, n_ints int, cudaStream_t) -> int,
-    with its ctypes signature set."""
+def bind(name: str, n_pointers: int, n_ints: int, n_uints: int = 0, n_floats: int = 0):
+    """C entry ``name`` with the :func:`signature` of these counts, returning
+    a cudaError_t code as ``int``."""
     fn = getattr(load_library(), name)
-    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
+    fn.argtypes = signature(n_pointers, n_ints, n_uints, n_floats)
     fn.restype = ctypes.c_int
     return fn
 

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from lako_tpu_torch.core.config import ReaderDataConfig, T5Config
+from lako_tpu_torch.core.device import resolve_device
 from lako_tpu_torch.data import ReaderCollator, ReaderDataset
 from lako_tpu_torch.models.t5.decode import make_best_generate_fn
 from lako_tpu_torch.models.t5.model import FiDT5
@@ -55,7 +56,8 @@ class LakoService:
 
     ``reader_params`` is a FiDT5 ``state_dict`` (for instance from
     ``models.t5.params_from_jax`` or ``init_fid_t5(...).state_dict()``); the
-    service builds its own model on ``device`` and loads it.
+    service builds its own model on ``device`` (the CUDA card unless given;
+    it raises without one) and loads it.
     """
 
     def __init__(self, cfg: ServiceConfig, t5_config: T5Config,
@@ -76,7 +78,7 @@ class LakoService:
             raise NotImplementedError(
                 "beam search (num_beams > 1) is not ported yet (ROADMAP item 10)")
         self.cfg = cfg
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         with torch.device(self.device):
             self.model = FiDT5(t5_config, dtype)

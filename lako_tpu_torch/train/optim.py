@@ -24,7 +24,9 @@ What is kept from optax and HF on purpose:
 - Scalars are rounded to each tensor's dtype before they multiply it, as
   optax casts them, so bf16 parameters keep bf16 moments and updates.
 
-Adafactor and the 8-bit AdamW (kernel K5) are not ported yet and raise.
+``optim="adamw8bit"`` swaps Adam for train/optim8.py's 8-bit moments (the
+update kernel K5 on the card) in the same chain. Adafactor is not ported yet
+and raises.
 """
 
 from __future__ import annotations
@@ -239,7 +241,8 @@ def apply_updates(params: Tree, updates: Tree) -> Tree:
 
 
 def make_optimizer(cfg: OptimConfig) -> GradientTransformation:
-    """The JAX package's ``make_optimizer`` chain for ``adam`` and ``adamw``."""
+    """The JAX package's ``make_optimizer`` chain for ``adam``, ``adamw`` and
+    ``adamw8bit``."""
     scheduler_steps = cfg.scheduler_steps or cfg.total_steps
     if cfg.scheduler == "linear":
         lr: Schedule = warmup_linear_schedule(cfg.lr, cfg.warmup_steps, scheduler_steps,
@@ -248,23 +251,27 @@ def make_optimizer(cfg: OptimConfig) -> GradientTransformation:
         lr = cfg.lr
     if cfg.optim == "adafactor":
         raise NotImplementedError("optim='adafactor' is not ported yet (ROADMAP item 13)")
-    if cfg.optim == "adamw8bit":
-        raise NotImplementedError("optim='adamw8bit' needs the 8-bit Adam kernel K5, not "
-                                  "ported yet (ROADMAP item 13)")
     steps = [clip_by_global_norm(cfg.clip)]
     if cfg.optim == "adam":
         # torch.optim.Adam bias-corrects
         correct = True if cfg.adam_correct_bias is None else cfg.adam_correct_bias
-    elif cfg.optim == "adamw":
-        # HF AdamW(correct_bias=False)
+        steps.append(_scale_by_adam(correct, cfg.adam_b1, cfg.adam_b2, cfg.adam_eps))
+    elif cfg.optim in ("adamw", "adamw8bit"):
+        # HF AdamW(correct_bias=False); adamw8bit keeps its moments in 8 bits
         correct = False if cfg.adam_correct_bias is None else cfg.adam_correct_bias
+        if cfg.optim == "adamw":
+            steps.append(_scale_by_adam(correct, cfg.adam_b1, cfg.adam_b2, cfg.adam_eps))
+        else:
+            from lako_tpu_torch.train.optim8 import scale_by_adam_8bit
+
+            steps.append(scale_by_adam_8bit(b1=cfg.adam_b1, b2=cfg.adam_b2,
+                                            eps=cfg.adam_eps, correct_bias=correct))
     else:
         raise ValueError(cfg.optim)
-    steps.append(_scale_by_adam(correct, cfg.adam_b1, cfg.adam_b2, cfg.adam_eps))
     if cfg.layerwise_decay is not None:
         steps.append(_layerwise_scale(cfg.layerwise_decay))
     steps.append(scale_by_learning_rate(lr))
-    if cfg.optim == "adamw" and cfg.weight_decay > 0:
+    if cfg.optim in ("adamw", "adamw8bit") and cfg.weight_decay > 0:
         steps.append(_hf_decoupled_decay(cfg.weight_decay, lr, _no_decay_mask,
                                          layerwise_decay=cfg.layerwise_decay))
     tx = chain(*steps)

@@ -3,10 +3,12 @@
 One device, eager PyTorch. The train step runs FiDT5 in training mode
 (dropout keyed by ``(seed, step)``, the encoder blocks rematerialized under
 ``use_remat``, encoder self-attention through the streamed kernels K1 and
-K2a/K2b/K2c when the config routes it there), takes the gradient of the mean
-cross-entropy over labels that are not -100, and applies clipping, Adam(W)
-and the linear warmup schedule (train/optim.py). Each epoch ends with a
-greedy eval through ``make_best_generate_fn`` and exact match.
+K2a/K2b/K2c, or the whole-block kernel K4, when the config routes it there),
+takes the gradient of the mean cross-entropy over labels that are not -100,
+and applies clipping, Adam(W) (``adamw8bit``: 8-bit moments through the
+kernel K5) and the linear warmup schedule (train/optim.py). Each epoch ends
+with a greedy eval through ``make_best_generate_fn`` and exact match. Both
+loops run on the CUDA card unless given another device.
 
 Not ported yet; each raises ``NotImplementedError``: checkpoints
 (``save_checkpoints=True``), ``resume_from`` and ``profile_dir`` (ROADMAP
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from lako_tpu_torch.core.config import ReaderTrainConfig, t5_config_for_size
+from lako_tpu_torch.core.device import resolve_device
 from lako_tpu_torch.core.logging import get_logger
 from lako_tpu_torch.data import ReaderCollator, ReaderDataset, batch_iterator
 from lako_tpu_torch.models.t5 import FiDT5, init_fid_t5, jax_param_paths
@@ -74,8 +77,9 @@ def evaluate_reader(generate_fn: Callable, dataset: ReaderDataset,
     """Greedy decode + weighted EM over a dataset, in one process.
     ``generate_fn(ids, mask)`` is bound to its model (make_best_generate_fn),
     so there are no params to pass. The final partial batch is padded with
-    rows marked invalid, which are not scored."""
-    device = torch.device(device or "cpu")
+    rows marked invalid, which are not scored. ``device``: where the batches
+    go, the CUDA card unless given."""
+    device = resolve_device(device)
     scores: List[float] = []
     answers: List[str] = []
     indices: List[int] = []
@@ -147,14 +151,15 @@ def train_reader(
     resume_from: Optional[str] = None,
     device: Optional[torch.device] = None,
 ) -> ReaderTrainResult:
-    """Train the FiD reader on ``device`` (default CPU) for ``cfg.epochs``
+    """Train the FiD reader on ``device`` (the CUDA card unless given; it
+    raises without one) for ``cfg.epochs``
     epochs with early stopping on dev EM. ``init_params`` is a state_dict of
     the port's FiDT5 (``params_from_jax`` gives one from a JAX tree); without
     it the model is drawn by ``init_fid_t5`` from a generator seeded with
     ``cfg.seed``."""
     _refuse_unported(cfg, mesh, save_checkpoints, resume_from)
     logger = get_logger()
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     t5_cfg = t5_config or t5_config_for_size(cfg.model_size, vocab_size=tokenizer.vocab_size)
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 

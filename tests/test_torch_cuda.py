@@ -14,7 +14,9 @@ import torch
 from lako_tpu_torch.core.config import OptimConfig, T5Config
 from lako_tpu_torch.models.t5 import init_fid_t5
 from lako_tpu_torch.models.t5.engine import DecodeEngine, _quantize_kv
+from lako_tpu_torch.ops import adam8_kernel as k5
 from lako_tpu_torch.ops import decode_cross_attn as k3
+from lako_tpu_torch.ops import flash_attention as k4
 from lako_tpu_torch.ops import flash_streamed as k1
 from lako_tpu_torch.train.optim import make_optimizer
 from lako_tpu_torch.train.reader import make_reader_train_step, model_params
@@ -165,7 +167,7 @@ def test_decode_cross_kernel_matches_plain(cuda_device, B, K):
 def test_engine_kernels_on_the_card(cuda_device):
     """A tiny model on the card: the kernel configuration launches both
     kernels and agrees with the no-kernel one on >= 0.9 of the tokens; a
-    short sequence under use_flash_attention raises (K4 is not ported)."""
+    sequence shorter than flash_min_length takes K4, once a layer."""
     base = dict(vocab_size=64, d_model=128, d_kv=64, d_ff=256, num_layers=2,
                 num_decoder_layers=2, num_heads=2, relative_attention_num_buckets=8,
                 dropout_rate=0.0)
@@ -185,7 +187,151 @@ def test_engine_kernels_on_the_card(cuda_device):
     t_off, _ = DecodeEngine(off, max_length=6, kv_dtype="int8").generate(ids, mask)
     assert len(torch.unique(t_off)) > 1
     assert (t_on == t_off).float().mean() >= 0.9
-    with pytest.raises(NotImplementedError, match="K4"):
-        on.encode_passages(ids[..., :8], mask[..., :8])
+    k4_before, k1_before = k4.fused_attention.launches, k1.streamed_attention.launches
+    short = on.encode_passages(ids[..., :8], mask[..., :8])[0]
+    assert k4.fused_attention.launches == k4_before + 2
+    assert k1.streamed_attention.launches == k1_before
+    torch.testing.assert_close(short, off.encode_passages(ids[..., :8], mask[..., :8])[0],
+                               rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError, match="fused_cross"):
         DecodeEngine(off, kv_dtype="native", fused_cross=True)
+
+
+def _dense_bias(rel, mask, shape):
+    """rel (H,L,Lk) plus the key mask as -1e9, cut to a (broadcast) shape."""
+    full = rel[None] + torch.where(mask[:, None, None, :], 0.0, -1e9)
+    return full[tuple(slice(0, n) for n in shape)].contiguous()
+
+
+# K1's tolerances: bf16 rounds the plain version's logits, the kernel's not
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-4), (torch.bfloat16, 6e-2)])
+@pytest.mark.parametrize("shape,bias_shape", [
+    ((16, 16, 130, 130, 64), (16, 16, 130, 130)),
+    ((3, 2, 77, 200, 64), (1, 2, 77, 200)),
+    ((2, 4, 130, 512, 128), (2, 1, 130, 512)),
+    ((2, 3, 40, 56, 32), (2, 3, 40, 56)),
+])
+def test_fused_attention_kernel_matches_plain(cuda_device, dtype, atol, shape, bias_shape):
+    """K4 against its plain version, a fully masked row included, with full
+    and broadcast f32 biases; a bf16 bias too; more than 512 keys raises.
+    bf16 at head dims 64 and 128 takes the tensor-core kernel, at 32 the
+    CUDA-core one."""
+    q, k, v, rel, mask = _attn_inputs(*shape, cuda_device, dtype)
+    bias = _dense_bias(rel, mask, bias_shape)
+    before = k4.fused_attention.launches
+    out = k4.fused_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert k4.fused_attention.launches == before + 1
+    want = k4.fused_attention_reference(q, k, v, bias)
+    torch.testing.assert_close(out.float(), want.float(), rtol=atol, atol=atol)
+    out16 = k4.fused_attention(q, k, v, bias.bfloat16())
+    torch.testing.assert_close(out16.float(), k4.fused_attention_reference(
+        q, k, v, bias.bfloat16()).float(), rtol=atol, atol=atol)
+    torch.testing.assert_close(k4.fused_attention(q, k, v, None).float(),
+                               k4.fused_attention_reference(q, k, v, None).float(),
+                               rtol=atol, atol=atol)
+    with pytest.raises(ValueError, match="512 keys"):
+        k4.fused_attention(q, *(torch.cat([t] * (512 // t.shape[2] + 1), 2) for t in (k, v)),
+                           None)
+
+
+def test_fused_attention_gradients_on_the_card(cuda_device):
+    """The autograd Function: K4 forward, the plain recomputed backward,
+    dbias summed to a broadcast bias's shape, equal to autograd of the
+    plain version within 2e-4 (f32)."""
+    q, k, v, rel, mask = _attn_inputs(4, 3, 50, 50, 64, cuda_device, torch.float32)
+    bias = _dense_bias(rel, mask, (1, 3, 50, 50))
+    dout = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(1),
+                       device=cuda_device)
+    grads = []
+    for fn in (k4.fused_attention, k4.fused_attention_reference):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        grads.append(torch.autograd.grad(fn(*leaves), leaves, dout))
+    for a, b in zip(*grads):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+def _adam8_inputs(nb, dev, g_dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    g = to((rng.normal(size=(nb, 256)) * 1e-3).astype(np.float32)).to(g_dtype)
+    return (g, to(rng.integers(-127, 128, (nb, 256)).astype(np.int8)),
+            to((np.abs(rng.normal(size=(nb, 1))) * 1e-3).astype(np.float32)),
+            to(rng.integers(0, 256, (nb, 256)).astype(np.uint8)),
+            to((np.abs(rng.normal(size=(nb, 1))) * 1e-6).astype(np.float32)))
+
+
+@pytest.mark.parametrize("correct_bias", [False, True])
+@pytest.mark.parametrize("n,shape,transposed,g_dtype", [
+    (1000, (1000,), False, torch.float32),
+    (4096 * 64, (4096, 64), True, torch.float32),
+    (96 * 40, (96, 40), True, torch.bfloat16),
+    (256 * 37, (37, 256), False, torch.bfloat16),
+])
+def test_adam8_kernel_bitwise_matches_plain(cuda_device, n, shape, transposed, g_dtype,
+                                            correct_bias):
+    """K5 against its plain version on the card, steps 1 and 7: codes and
+    scales bitwise equal; u bitwise without the bias correction, within
+    rtol 2e-6 with it (expf and logf may differ by ulps)."""
+    nb = -(-n // 256)
+    g, mq, ms, vq, vs = _adam8_inputs(nb, cuda_device, g_dtype)
+    g = g.reshape(-1)[:n].reshape(shape).contiguous()
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-6, correct_bias=correct_bias,
+                 stochastic_round=True, seed=0x8B17, leaf_salt=3, transposed=transposed)
+    for count in (1, 7):
+        before = k5.fused_adam8_update.launches
+        got = k5.fused_adam8_update(g, mq, ms, vq, vs, count, **hyper)
+        torch.cuda.synchronize()
+        assert k5.fused_adam8_update.launches == before + 1
+        want = k5.fused_adam8_update_reference(g, mq, ms, vq, vs, count, **hyper)
+        assert got[0].shape == g.shape and got[0].dtype == g.dtype
+        if correct_bias:
+            torch.testing.assert_close(got[0].float(), want[0].float(), rtol=2e-6, atol=0)
+        else:
+            assert torch.equal(got[0], want[0])
+        for a, b in zip(got[1:], want[1:]):
+            assert torch.equal(a, b)
+
+
+def test_adam8_ema_fragment_bitwise_matches_plain(cuda_device):
+    g, mq, ms, vq, vs = _adam8_inputs(1000, cuda_device, torch.bfloat16)
+    before = k5.adam8_ema_fragment.launches
+    got = k5.adam8_ema_fragment(g, mq, ms, vq, vs)
+    torch.cuda.synchronize()
+    assert k5.adam8_ema_fragment.launches == before + 1
+    assert torch.equal(got, k5.adam8_ema_fragment_reference(g, mq, ms, vq, vs))
+
+
+def test_adamw8bit_train_step_on_the_fused_route(cuda_device):
+    """A tiny train step (f32, remat) on the whole-block route with AdamW8bit:
+    K4 twice a layer, K5 once a parameter tensor, and the same parameters as
+    the step on the CPU path (the same kernels' plain versions) within 1e-4
+    of the step's movement."""
+    base = dict(vocab_size=64, d_model=128, d_kv=64, d_ff=256, num_layers=2,
+                num_decoder_layers=2, num_heads=2, relative_attention_num_buckets=8,
+                dropout_rate=0.0, use_flash_attention=True)
+    gen = torch.Generator().manual_seed(3)
+    ids = torch.randint(1, 64, (4, 2, 40), generator=gen)
+    mask = torch.rand(4, 2, 40, generator=gen) < 0.8
+    mask[..., 0] = True
+    labels = torch.randint(1, 64, (4, 6), generator=gen)
+    cfg = OptimConfig(optim="adamw8bit", lr=1e-3, warmup_steps=0)
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model = init_fid_t5(T5Config(**base), torch.Generator(device=dev).manual_seed(0),
+                            use_remat=True)
+        if dev.type == "cpu":
+            model.load_state_dict(init)
+        init = {k: t.detach().cpu().clone() for k, t in model.state_dict().items()}
+        state = TrainState.create(model_params(model), make_optimizer(cfg))
+        before = (k4.fused_attention.launches, k5.fused_adam8_update.launches)
+        state, loss = make_reader_train_step(model)(state, ids.to(dev), mask.to(dev),
+                                                   labels.to(dev), 0)
+        launched = (k4.fused_attention.launches - before[0],
+                    k5.fused_adam8_update.launches - before[1])
+        assert launched == ((4, len(state.params)) if dev.type == "cuda" else (0, 0))
+        results.append({k: t.detach().cpu() for k, t in model.state_dict().items()})
+    for name, a in results[0].items():
+        moved = float((results[1][name] - init[name]).abs().max())
+        assert float((a - results[1][name]).abs().max()) <= 1e-4 * max(moved, 1e-3) + 1e-6, name

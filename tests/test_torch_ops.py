@@ -17,8 +17,11 @@ from lako_tpu.ops.decode_cross_attn import (
     fused_decode_cross_attention as jax_fused_cross,
     xla_reference as jax_cross_reference,
 )
+from lako_tpu.ops.flash_attention import _xla_attention, fused_attention as jax_fused
 from lako_tpu.ops.flash_streamed import _xla_reference, streamed_attention as jax_streamed
+from lako_tpu_torch.ops import _build
 from lako_tpu_torch.ops import decode_cross_attn as k3
+from lako_tpu_torch.ops import flash_attention as k4
 from lako_tpu_torch.ops import flash_streamed as k1
 
 
@@ -200,3 +203,107 @@ def test_decode_cross_scale_layouts_and_guards():
         k3.fused_decode_cross_attention(q, k_i8, k_s, v_i8, v_s, bias[:, 0])
     with pytest.raises(ValueError, match="no kernel for device meta"):
         k3.fused_decode_cross_attention(*(t.to("meta") for t in (q, k_i8, k_s, v_i8, v_s, bias)))
+
+
+def _dense_inputs(B, H, L, Lk, D, bias_shape, seed=0, padding_row=False):
+    """q, k, v and a dense additive bias of ``bias_shape`` (None: no bias)
+    holding a relative-position-like term and the key mask (-1e9)."""
+    q, k, v, rel, mask = _attn_inputs(B, H, L, Lk, D, seed=seed, padding_row=padding_row)
+    if bias_shape is None:
+        return q, k, v, None
+    full = rel[None] + np.where(mask[:, None, None, :], 0.0, -1e9).astype(np.float32)
+    bias = full[tuple(slice(0, n) for n in bias_shape)]   # the broadcast axes keep row 0
+    return q, k, v, np.ascontiguousarray(bias, dtype=np.float32)
+
+
+def _maybe(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _jmaybe(a):
+    return None if a is None else jnp.asarray(a)
+
+
+@pytest.mark.parametrize("B,H,L,Lk,D,bias_shape", [
+    (3, 2, 37, 45, 16, (3, 2, 37, 45)),
+    (2, 4, 130, 130, 64, (2, 4, 130, 130)),
+    (2, 3, 20, 20, 8, (1, 3, 20, 20)),
+    (3, 2, 24, 31, 8, (3, 1, 24, 31)),
+    (2, 2, 16, 16, 8, None),
+])
+def test_fused_attention_plain_matches_jax_kernel(B, H, L, Lk, D, bias_shape):
+    """Plain K4 vs the interpreted Pallas kernel, full and broadcast biases
+    and none, no fully masked row: within 1e-5."""
+    q, k, v, bias = _dense_inputs(B, H, L, Lk, D, bias_shape)
+    out = k4.fused_attention(*_torch(q, k, v), _maybe(bias)).numpy()
+    want = np.asarray(jax_fused(*map(jnp.asarray, (q, k, v)), _jmaybe(bias), True))
+    np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-5)
+
+
+def test_fused_attention_padding_row_follows_xla():
+    """A fully masked row averages V over the real keys, as _xla_attention
+    does (the Pallas kernel's 128-lane key padding shares that row's
+    weight, so it is held to the XLA function here)."""
+    q, k, v, bias = _dense_inputs(3, 2, 30, 30, 8, (3, 2, 30, 30), padding_row=True)
+    out = k4.fused_attention(*_torch(q, k, v, bias)).numpy()
+    want = np.asarray(_xla_attention(*map(jnp.asarray, (q, k, v, bias))))
+    np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out[1], np.broadcast_to(v[1].mean(axis=1, keepdims=True),
+                                                       out[1].shape), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bias_shape", [(2, 3, 20, 26), (1, 3, 20, 26), (2, 1, 20, 26)])
+def test_fused_attention_gradients_match_jax(bias_shape):
+    """dq, dk, dv vs jax.grad through the interpreted Pallas kernel (its XLA
+    backward); dbias, which the JAX custom_vjp drops, vs jax.grad of
+    _xla_attention, summed to the bias's own (broadcast) shape. 1e-5."""
+    q, k, v, bias = _dense_inputs(2, 3, 20, 26, 8, bias_shape)
+    g = np.random.default_rng(4).normal(size=q.shape).astype(np.float32)
+    leaves = [t.requires_grad_() for t in _torch(q, k, v, bias)]
+    got = torch.autograd.grad((k4.fused_attention(*leaves) * torch.from_numpy(g)).sum(), leaves)
+    assert got[3].shape == bias_shape
+
+    def loss(fn):
+        return lambda *a: jnp.sum(fn(*a) * g)
+
+    jq, jk, jv, jb = map(jnp.asarray, (q, k, v, bias))
+    want = jax.grad(loss(lambda q, k, v: jax_fused(q, k, v, jb, True)), argnums=(0, 1, 2))(
+        jq, jk, jv)
+    want = list(want) + [jax.grad(loss(_xla_attention), argnums=3)(jq, jk, jv, jb)]
+    assert jax.grad(loss(lambda b: jax_fused(jq, jk, jv, b, True)))(jb) is not None
+    for name, a, b in zip(["q", "k", "v", "bias"], got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+    assert float(got[3].abs().max()) > 1e-3
+
+
+def test_fused_attention_wrapper_refuses_bad_inputs():
+    q, k, v, bias = _torch(*_dense_inputs(2, 2, 8, 8, 4, (2, 2, 8, 8)))
+    # no grad needed: the plain forward; bf16 bias accepted
+    out = k4.fused_attention(q, k, v, bias.bfloat16())
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError, match="broadcast"):
+        k4.fused_attention(q, k, v, bias[:, :, :4])
+    with pytest.raises(ValueError, match="4-d"):
+        k4.fused_attention(q, k, v, bias[0])
+    with pytest.raises(ValueError, match="dtype"):
+        k4.fused_attention(q.double(), k, v, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.fused_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, bias)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        k4.fused_attention(*(t.to("meta") for t in (q, k, v, bias)))
+    assert k4.fused_attention.launches == 0   # the CPU path launches nothing
+
+
+def test_build_signature_takes_floats_and_uint32():
+    """The ctypes argument list of a C entry: pointers, ints, uint32s, floats,
+    then the stream (no library is loaded)."""
+    import ctypes
+
+    sig = _build.signature(2, 1, 2, 3)
+    assert sig == [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_uint32] * 2 + \
+        [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    assert _build.signature(7, 6) == [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    # a hash constant above 2**31 passes as uint32, a float as float
+    assert ctypes.c_uint32(0x85EBCA6B).value == 0x85EBCA6B
+    assert ctypes.c_float(0.9).value == np.float32(0.9)

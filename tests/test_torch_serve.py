@@ -65,7 +65,7 @@ def services():
         jax_config.T5Config(**t5), params, jtok)
     psvc = LakoService(
         ServiceConfig(data=port_config.ReaderDataConfig(**DATA), **common),
-        port_config.T5Config(**t5), params_from_jax(params), _port_tokenizer())
+        port_config.T5Config(**t5), params_from_jax(params), _port_tokenizer(), device="cpu")
     return jsvc, psvc, params
 
 
@@ -83,7 +83,7 @@ def test_answers_match_jax_service(services):
 
     fused = LakoService(dataclasses.replace(psvc.cfg, decode_fused_cross=True),
                         port_config.T5Config(**dict(TINY, vocab_size=psvc.tokenizer.vocab_size)),
-                        params_from_jax(params), psvc.tokenizer)
+                        params_from_jax(params), psvc.tokenizer, device="cpu")
     _, tok_plain = psvc.generate_tokens(reqs)
     _, tok_fused = fused.generate_tokens(reqs)
     assert tok_plain.shape == (6, 5)
@@ -153,7 +153,8 @@ def test_unported_service_options_raise(services):
     for change, item in [({"mesh_model": 2}, "11"), ({"num_beams": 4}, "10"),
                          ({"engine_policy": "auto"}, "11")]:
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            LakoService(dataclasses.replace(psvc.cfg, **change), t5, sd, psvc.tokenizer)
+            LakoService(dataclasses.replace(psvc.cfg, **change), t5, sd, psvc.tokenizer,
+                        device="cpu")
     assert psvc.retrieve_facts([{"question": "q"}]) == [[]]
 
 
@@ -197,7 +198,9 @@ def test_port_imports_no_jax():
             "names = [m.name for m in pkgutil.walk_packages(lako_tpu_torch.__path__, "
             "'lako_tpu_torch.')]; "
             "[importlib.import_module(n) for n in names]; "
-            "assert 'lako_tpu_torch.serve' in names, names; "
+            "assert {'lako_tpu_torch.serve', 'lako_tpu_torch.ops.flash_attention', "
+            "'lako_tpu_torch.ops.adam8_kernel', 'lako_tpu_torch.train.optim8'} <= set(names), "
+            "names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'lako_tpu', 'regex', 'transformers')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -214,3 +217,27 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found.*-gencode arch=compute_90a,code=sm_90a"):
         _build.compile_library(tmp_path / "lib.so")
     assert not (tmp_path / "lib.so").exists()
+
+
+def test_entry_points_run_on_the_card_by_default(monkeypatch, services):
+    """Without a device the service, evaluate_reader and train_reader take
+    the CUDA card; without a card they raise instead of falling back to the
+    CPU, and device="cpu" asks for the CPU."""
+    from lako_tpu_torch.core.device import resolve_device
+    from lako_tpu_torch.train.reader import evaluate_reader, train_reader
+
+    _, psvc, params = services
+    t5 = port_config.T5Config(**dict(TINY, vocab_size=psvc.tokenizer.vocab_size))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+        LakoService(psvc.cfg, t5, params_from_jax(params), psvc.tokenizer)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_reader(lambda ids, mask: None, [], None, psvc.tokenizer, 4)
+    cfg = port_config.ReaderTrainConfig(model_size="tiny", data=port_config.ReaderDataConfig(**DATA))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_reader(cfg, make_examples(4), [], psvc.tokenizer, t5_config=t5,
+                     save_checkpoints=False)
+    assert psvc.device == torch.device("cpu")

@@ -291,3 +291,71 @@ def test_remat_policies(flash):
     assert matmuls[True, "dots"] == matmuls[False, None]
     with pytest.raises(ValueError, match="remat policy"):
         FiDT5(cfg, use_remat=True, remat_policy="bogus")
+
+
+def _count_fused(monkeypatch):
+    """Count the encoder's calls of K4's wrapper."""
+    from lako_tpu_torch.models.t5 import layers
+
+    calls = []
+    real = layers.fused_attention
+    monkeypatch.setattr(layers, "fused_attention", lambda *a: calls.append(1) or real(*a))
+    return calls
+
+
+@pytest.mark.parametrize("ff", ["relu", "gated-gelu"])
+def test_fid_t5_fused_route_matches_jax(monkeypatch, ff):
+    """use_flash_attention at the default flash_min_length 512 > L: each
+    encoder block of the port takes K4's wrapper (its plain version on the
+    CPU), the JAX model plain attention off the TPU. Encoder output, loss,
+    logits and cross logits within 1e-4."""
+    kw = dict(TINY, feed_forward_proj=ff, use_flash_attention=True)
+    assert T5Config(**kw).flash_min_length == 512
+    ids, mask, labels = _batch()
+    jm = JaxFiDT5(JaxT5Config(**kw))
+    params = jm.init(jax.random.PRNGKey(1), ids, mask, labels)["params"]
+    j_loss, j_logits, j_xl = jm.apply({"params": params}, ids, mask, labels,
+                                      collect_cross_logits=True)
+    j_enc, _ = jm.apply({"params": params}, ids, mask, method=JaxFiDT5.encode_passages)
+
+    calls = _count_fused(monkeypatch)
+    model = FiDT5(T5Config(**kw))
+    model.load_state_dict(params_from_jax(params))
+    model.eval()
+    t = [torch.from_numpy(a) for a in (ids, mask, labels)]
+    with torch.inference_mode():
+        loss, logits, xl = model(*t, collect_cross_logits=True)
+        enc, _ = model.encode_passages(t[0], t[1])
+    assert len(calls) == 2 * TINY["num_layers"]
+    tol = dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(enc.numpy(), np.asarray(j_enc), **tol)
+    np.testing.assert_allclose(float(loss), float(j_loss), **tol)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), **tol)
+    np.testing.assert_allclose(xl.numpy(), np.asarray(j_xl), **tol)
+
+
+def test_fused_route_remat_and_dropout(monkeypatch):
+    """On the whole-block route the gradients under remat None, "full" and
+    "dots" equal those without remat, K4's wrapper runs twice a layer under
+    remat (forward and recompute) and once without; training with dropout
+    takes plain attention instead, as in the JAX package."""
+    calls = _count_fused(monkeypatch)
+    cfg = T5Config(**dict(TINY, use_flash_attention=True))
+    init = init_fid_t5(cfg, torch.Generator().manual_seed(6)).state_dict()
+    t = [torch.from_numpy(x) for x in _batch()]
+    grads = {}
+    for remat, policy in [(False, None), (True, None), (True, "full"), (True, "dots")]:
+        model = FiDT5(cfg, use_remat=remat, remat_policy=policy)
+        model.load_state_dict(init)
+        calls.clear()
+        loss = model.train()(*t)[0]
+        grads[remat, policy] = torch.autograd.grad(loss, list(model.parameters()))
+        assert len(calls) == (2 if remat else 1) * cfg.num_layers, (remat, policy)
+    for key, g in grads.items():
+        for a, b in zip(g, grads[False, None]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=str(key))
+    dropout = FiDT5(T5Config(**dict(TINY, use_flash_attention=True, dropout_rate=0.1)))
+    set_dropout_key(dropout.train(), seed=0, step=0)
+    calls.clear()
+    dropout(*t)
+    assert not calls
