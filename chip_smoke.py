@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit, torch's device name).
-2. Builds the CUDA kernels from ``lako_tpu_torch/csrc`` with nvcc.
+2. Builds the CUDA kernels from ``lako_tpu_torch/csrc`` with nvcc and, beside
+   the build, prints the registers and spill bytes ptxas reports for each
+   kernel of ``PTXAS_SOURCES`` (K4 and the streamed backward).
 3. Checks each kernel against its plain PyTorch version on the card, at the
    main path's shapes and in its working types, and times the kernel, the
    plain version and, where one exists, the one PyTorch call that computes
@@ -14,8 +16,10 @@
    bound: the larger of the bytes moved over 3.35 TB/s and the operations
    over the type's peak (H100 SXM data sheet).
    K1 streamed attention and its backward K2a/K2b/K2c (directly and through
-   the autograd Function); K3 int8 decode cross-attention; K4 whole-block
-   attention with a dense bias (full and broadcast, fully masked rows); K5
+   the autograd Function; drel bitwise equal in a second launch); K3 int8
+   decode cross-attention; K4 whole-block attention with a dense bias (full
+   and broadcast, fully masked rows, 512 keys); achieved GB/s beside K4 and
+   K2c; K5
    the one-pass 8-bit Adam update (codes, scales and u bitwise equal to the
    plain version, at a t5-large embedding leaf, a dense kernel leaf and the
    JAX package's micro shape); K6 its requantization-free fragment.
@@ -61,6 +65,8 @@ import gc
 import importlib.util
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -102,8 +108,49 @@ ANIMALS = ["cat", "dog", "cow", "duck", "frog", "bee", "owl", "wolf", "horse", "
 SOUNDS = ["meow", "woof", "moo", "quack", "croak", "buzz", "hoot", "howl", "neigh", "bleat"]
 
 
+# the sources whose kernels' registers and spills the run reports (ptxas -v)
+PTXAS_SOURCES = ("fused_attention.cu", "flash_streamed_bwd.cu")
+
+
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def start_ptxas(build):
+    """``nvcc -Xptxas -v`` on PTXAS_SOURCES, one process each, started beside
+    the library's build; ptxas_report reads them."""
+    nvcc = build.find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found")
+    out = build.BUILD_DIR / "ptxas"
+    out.mkdir(parents=True, exist_ok=True)
+    return [(src, subprocess.Popen(
+        [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(out / f"{src}.o"),
+         str(build.CSRC_DIR / src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src in PTXAS_SOURCES]
+
+
+def ptxas_report(procs, nvcc_dir) -> None:
+    """Each kernel's registers and spill bytes as ptxas reported them."""
+    filt = shutil.which("cu++filt", path=str(nvcc_dir)) or shutil.which("c++filt")
+    for src, proc in procs:
+        text = proc.communicate(timeout=900)[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v {src} failed:\n{text}")
+        entry, spills = None, (0, 0)
+        for line in text.splitlines():
+            if m := re.search(r"Compiling entry function '(\w+)'", line):
+                entry, spills = m.group(1), (0, 0)
+                if filt:
+                    entry = subprocess.run([filt, entry], capture_output=True, text=True,
+                                           timeout=60).stdout.strip()
+                entry = entry.split(">(")[0] + ">" if ">(" in entry else entry
+            elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+                spills = (int(m.group(1)), int(m.group(2)))
+            elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+                log(f"  ptxas {src}: {entry}: {m.group(1)} registers, spill stores "
+                    f"{spills[0]} B, spill loads {spills[1]} B")
+                entry = None
 
 
 def device_ms(fn, calls: int = 20, replays: int = 10) -> float:
@@ -282,6 +329,12 @@ def check_streamed_bwd(dev):
         torch.cuda.synchronize()
         want = k1.streamed_attention_bwd_reference(q, k, v, rel, mask, out, stats, dout)
         errs = compare_bwd(f"{label}, direct", got, want, dtype)
+        again = k1.streamed_attention_bwd_drel(*args)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got[3], again))
+        log(f"    {label} drel bitwise equal in a second launch: {same}")
+        if not same:
+            raise AssertionError(f"K2c is not repeatable at {label}")
         leaves = [t.clone().requires_grad_() for t in (q, k, v, rel)]
         got = torch.autograd.grad(k1.streamed_attention(*leaves, mask), leaves, dout)
         torch.cuda.synchronize()
@@ -304,6 +357,9 @@ def check_streamed_bwd(dev):
         times[name] = (kern, plain)
         log(f"  time of {name} at (16,16,130,64) bf16: kernel {kern:.4f} ms, its plain "
             f"version {plain:.4f} ms (device time per call, CUDA graph of 20 calls)")
+    drel_bytes = nbytes(*args) + nbytes(args[3])
+    log(f"  drel: {drel_bytes / times['drel'][0] / 1e6:.0f} GB/s achieved "
+        f"({drel_bytes / 1e6:.1f} MB)")
 
     def k2_all():
         for fn in kernels.values():
@@ -400,7 +456,9 @@ def check_fused(dev):
              ("(3,2,77,64) Lk=200 bf16, broadcast (1,2,77,200) bias", (3, 2, 77, 200, 64),
               torch.bfloat16, 1, (1, 2, 77, 200)),
              ("(3,2,77,64) Lk=200 f32, broadcast (1,2,77,200) bias", (3, 2, 77, 200, 64),
-              torch.float32, 1, (1, 2, 77, 200))]
+              torch.float32, 1, (1, 2, 77, 200)),
+             ("(2,4,130,64) Lk=512 bf16, f32 bias (logits in shared memory)",
+              (2, 4, 130, 512, 64), torch.bfloat16, 1, None)]
     first = None
     for label, shape, dtype, masked, cut in cases:
         q, k, v, rel, mask = attn_inputs(gen, dev, *shape, dtype, masked)
@@ -420,13 +478,15 @@ def check_fused(dev):
     kern = (kern + device_ms(lambda: k4.fused_attention(q, k, v, bias))) / 2
     library = device_ms(lambda: sdpa(q, k, v, bias16))
     plain = (plain + device_ms(lambda: k4.fused_attention_reference(q, k, v, bias))) / 2
-    log(f"  time at {cases[0][0]}: kernel {kern:.4f} ms, plain {plain:.4f} ms, "
+    n_bytes = nbytes(q, k, v, bias, q)
+    log(f"  time at {cases[0][0]}: kernel {kern:.4f} ms ({n_bytes / kern / 1e6:.0f} GB/s "
+        f"achieved, {n_bytes / 1e6:.1f} MB), plain {plain:.4f} ms, "
         f"scaled_dot_product_attention with the bias in bf16 {library:.4f} ms (device time "
         f"per call, CUDA graph of 20 calls)")
     B, H, L, D = q.shape
     return entry("fused_attention", "lako_tpu_torch/csrc/fused_attention.cu",
                  "lako_tpu/ops/flash_attention.py:81", err, kern, plain,
-                 nbytes(q, k, v, bias, q), 4 * B * H * L * k.shape[2] * D, "bf16", library)
+                 n_bytes, 4 * B * H * L * k.shape[2] * D, "bf16", library)
 
 
 def adam8_state(gen, dev, n):
@@ -1064,8 +1124,10 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
+    ptxas = start_ptxas(_build)
     _build.load_library()
     log(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    ptxas_report(ptxas, Path(_build.find_nvcc()).parent)
 
     kernels = [check_streamed(dev), *check_streamed_bwd(dev), check_decode_cross(dev),
                check_fused(dev), *check_adam8(dev)]

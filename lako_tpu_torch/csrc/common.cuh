@@ -63,4 +63,80 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// x / y from r = __frcp_rn(y): the rounded quotient x r corrected once with
+// FMAs (Markstein), which gives the IEEE quotient without div.rn's slow path
+// (tests/test_torch_ops.py holds the sequence to x / y in f32)
+__device__ __forceinline__ float div_rn(float x, float y, float r) {
+  const float q = x * r;
+  return fmaf(fmaf(-q, y, x), r, q);
+}
+
+// 16 bytes from device memory to shared memory, asynchronously (cp.async,
+// L2 only); zeros instead when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n of this thread's committed copy groups are in flight
+template <int n> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(n) : "memory");
+}
+
+// rows [0, rows) of a (n_rows, D) row-major bf16 matrix into shared memory
+// rows `pitch` elements apart, 16 bytes a copy, by all threads of the
+// block; rows at or past n_rows are zero. Neighbouring threads copy
+// neighbouring 16 bytes of a row.
+template <int D>
+__device__ __forceinline__ void cp_async_rows(__nv_bfloat16* dst, int pitch,
+                                              const __nv_bfloat16* src, int rows, int n_rows) {
+  constexpr int PER_ROW = D / 8;
+  for (int i = threadIdx.x; i < rows * PER_ROW; i += blockDim.x) {
+    const int r = i / PER_ROW, c = (i - r * PER_ROW) * 8;
+    const bool valid = r < n_rows;
+    cp_async16(dst + r * pitch + c, valid ? src + (size_t)r * D + c : src, valid);
+  }
+}
+
+// Four 8x8 bf16 matrices from shared memory (ldmatrix.x4): lane i gives the
+// address of row i % 8 of matrix i / 8, and r[m] receives matrix m in the
+// mma fragment layout (lane holds row lane / 4, columns 2 (lane % 4) + {0,1}).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// The same, each matrix transposed: lane holds rows 2 (lane % 4) + {0,1} of
+// column lane / 4 (row-major V as the col-major B operand of P.V).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// The A fragments (16 rows x 32 columns, two m16n8k16 k-steps) of rows
+// [0,16) and columns [c0, c0+32) of a row-major bf16 tile in shared memory
+__device__ __forceinline__ void load_a_x2(uint32_t (&a0)[4], uint32_t (&a1)[4],
+                                          const __nv_bfloat16* tile, int pitch, int c0) {
+  const int lane = threadIdx.x % 32;
+  const __nv_bfloat16* p = tile + (lane & 15) * pitch + c0 + (lane >> 4) * 8;
+  ldmatrix_x4(a0, p);
+  ldmatrix_x4(a1, p + 16);
+}
+
+// The B fragments (8 columns of n x 32 of k, two k-steps) of an (n, k)
+// row-major bf16 tile in shared memory, i.e. Y of X.Y^T: rows [n0, n0+8),
+// columns [c0, c0+32). b[0], b[1] feed the first k-step, b[2], b[3] the second.
+__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4], const __nv_bfloat16* tile,
+                                            int pitch, int n0, int c0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(b, tile + (n0 + (lane & 7)) * pitch + c0 + (lane >> 3) * 8);
+}
+
 }  // namespace lako

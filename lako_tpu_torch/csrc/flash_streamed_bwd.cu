@@ -16,7 +16,8 @@
 //   K2b: dQ[q] = sum_k dS[q,k] k[k]
 //        one block per (b, h, q tile), walking the k tiles;
 //   K2c: drel[h,q,k] = sum_b dS[b,h,q,k]
-//        one block per (h, q tile, k tile), walking the batch. Each element
+//        walking the batch inside each block (bf16: one block per (24-key
+//        slab, 48-row slab, h); f32: per (h, q tile, k tile)). Each element
 //        is written once, with no atomics, so drel is the same in every run.
 // The (B,H,L,Lk) logits never exist in device memory.
 //
@@ -32,14 +33,29 @@
 //
 // What bounds them on the H100: at the encoder's shape (B*N=16, H=16,
 // L=Lk=130, D=64) the three kernels together do ~5 GFLOP of products and
-// move a few MB. This first version runs every product on CUDA-core FMAs in
-// f32 (67 TFLOP/s on NVIDIA's H100 SXM data sheet), for bf16 and f32 inputs
-// alike: simple and right first. Operands are staged in shared memory as f32,
-// transposed with a padded row stride so that the tile products read float4s
-// and the accumulation loops hit at most two-way bank conflicts. The ragged
-// edge at L=130 costs a third, nearly empty tile in each direction. Next:
-// mma.sync (or wgmma) for bf16, as the forward has, and smaller edge tiles.
+// move ~20 MB each (q, k, v, dO in bf16, the statistics, rel), a few us at
+// 3.35 TB/s; so on the CUDA cores (67 TFLOP/s f32 on NVIDIA's H100 SXM data
+// sheet) the products bound them, on the tensor cores the bytes and latency.
+// - K2a and K2b, and every kernel for f32 inputs, run every product on
+//   CUDA-core FMAs in f32: operands staged in shared memory as f32,
+//   transposed with a padded row stride so that the tile products read
+//   float4s, 64 x 64 tiles (the ragged edge at L=130 costs a third, nearly
+//   empty tile in each direction).
+// - K2c for bf16 runs both products on the tensor cores (attention_bwd_tile.cuh:
+//   S = Q.K^T and dP = dO.V^T as mma.sync m16n8k16 on ldmatrix fragments of
+//   the row-major tiles, P and dS formed in the C fragments, P / l by
+//   div_rn). What bounds it is the walk's latency, B batch rows one after
+//   another in each block, not its bytes: so 240 blocks of 6 warps at L=130
+//   (3 x 16 rows by 2 x 16 keys, a warp 16 rows x 16 keys) keep ~11 warps on
+//   each of the 132 SMs, and the edges cost 16 rows and 8 keys, not 64. Each
+//   warp reads its rel tile into registers once and keeps its drel sum there;
+//   cp.async brings q, dO, k and v two batch rows ahead into a 3-stage
+//   shared-memory ring, and the next row's (m, l), Dv and key mask are loaded
+//   into registers one row ahead, so neither waits on device memory.
 
+#include <type_traits>
+
+#include "attention_bwd_tile.cuh"
 #include "common.cuh"
 
 namespace {
@@ -368,6 +384,149 @@ bwd_drel_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
+// ---- K2c for bf16: tensor cores, a pipelined walk over the batch ----------
+
+constexpr int DREL_ROW_WARPS = 3;  // warps along the rows, 16 query rows each
+constexpr int DREL_KEY_WARPS = 2;  // warps along the keys
+constexpr int DREL_KT = 2;         // 8-key tiles per warp
+constexpr int DREL_STAGES = 3;     // batch rows in the shared-memory ring
+constexpr int DREL_ROWS = 16 * DREL_ROW_WARPS;               // rows per block
+constexpr int DREL_KEYS = 8 * DREL_KT * DREL_KEY_WARPS;      // keys per block
+constexpr int DREL_THREADS = 32 * DREL_ROW_WARPS * DREL_KEY_WARPS;
+
+// Instantiations: D = 64 and 128, 116 and 117 registers a thread as ptxas
+// reports them for sm_90a (chip_smoke.py prints them), no spills.
+template <int D>
+constexpr size_t drel_mma_smem_bytes() {
+  // per stage: q and dO rows [DREL_ROWS][D+8], k and v rows [DREL_KEYS][D+8]
+  return sizeof(bf16) * (size_t)DREL_STAGES * (2 * DREL_ROWS + 2 * DREL_KEYS) * (D + 8);
+}
+
+// One block per (key slab, row slab, h); warp (rw, kw) owns 16 rows x 8 KT
+// keys of the slab and keeps, in registers, its rel tile (read once) and its
+// drel sum, added to in the order b = 0..B-1 and written once. The block walks
+// the batch through a DREL_STAGES ring: the copies of rows b + 1 .. b +
+// DREL_STAGES - 1 (cp.async), and the loads of row b + 1's statistics and key
+// mask (into registers), are in flight while row b computes.
+template <int D>
+__global__ void __launch_bounds__(DREL_THREADS)
+bwd_drel_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const float* __restrict__ rel,
+                    const uint8_t* __restrict__ key_mask, const float2* __restrict__ stats,
+                    const float* __restrict__ dvec, const bf16* __restrict__ dout,
+                    float* __restrict__ drel, int B, int H, int L, int Lk) {
+  constexpr int P = D + 8;  // row pitch: ldmatrix rows hit distinct banks
+  constexpr int KT = DREL_KT;
+  constexpr int STAGE = (2 * DREL_ROWS + 2 * DREL_KEYS) * P;
+  extern __shared__ float4 smem4[];
+  bf16* ring = reinterpret_cast<bf16*>(smem4);
+
+  const int k0 = blockIdx.x * DREL_KEYS;
+  const int q0 = blockIdx.y * DREL_ROWS;
+  const int h = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rw = warp % DREL_ROW_WARPS, kw = warp / DREL_ROW_WARPS;
+  const int t = lane % 4;
+  const int row0 = q0 + rw * 16 + lane / 4, row1 = row0 + 8;  // this thread's rows
+  const int wk = kw * 8 * KT;                                   // the warp's keys in the slab
+  const bool active = q0 + rw * 16 < L && k0 + wk < Lk;  // else the warp only copies
+  const int n_tiles = min(KT, (Lk - k0 - wk + 7) / 8);    // tiles that hold a real key
+
+  auto issue = [&](int b) {  // batch row b's operands into its stage
+    bf16* st = ring + (b % DREL_STAGES) * STAGE;
+    const size_t bh = (size_t)b * H + h;
+    lako::cp_async_rows<D>(st, P, q + (bh * L + q0) * D, DREL_ROWS, L - q0);
+    lako::cp_async_rows<D>(st + DREL_ROWS * P, P, dout + (bh * L + q0) * D, DREL_ROWS, L - q0);
+    lako::cp_async_rows<D>(st + 2 * DREL_ROWS * P, P, k + (bh * Lk + k0) * D, DREL_KEYS, Lk - k0);
+    lako::cp_async_rows<D>(st + (2 * DREL_ROWS + DREL_KEYS) * P, P, v + (bh * Lk + k0) * D,
+                           DREL_KEYS, Lk - k0);
+  };
+  // batch row b's statistics, Dv and key-mask bytes for this thread; nothing
+  // uses them before the next row's copies have been waited for
+  struct RowLoads {
+    float2 ml[2];
+    float dv[2];
+    uint8_t live[KT][2];
+  };
+  auto load = [&](int b, RowLoads& x) {
+    const size_t bh = (size_t)b * H + h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r == 0 ? row0 : row1;
+      x.ml[r] = row < L ? stats[bh * L + row] : make_float2(0.f, 1.f);
+      x.dv[r] = row < L ? dvec[bh * L + row] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + wk + j * 8 + t * 2 + e;
+        x.live[j][e] = key < Lk ? key_mask[(size_t)b * Lk + key] : 0;
+      }
+  };
+#pragma unroll
+  for (int b = 0; b < DREL_STAGES - 1; ++b) {
+    if (b < B) issue(b);
+    lako::cp_async_commit();
+  }
+  RowLoads cur, next;
+  if (B > 0) load(0, cur);
+
+  // the rel tile and which keys lie before Lk, read once
+  float rl[KT][4], acc[KT][4];
+  uint32_t in_keys = 0;
+#pragma unroll
+  for (int j = 0; j < KT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + wk + j * 8 + t * 2 + (e & 1), row = e < 2 ? row0 : row1;
+      rl[j][e] = row < L && key < Lk ? rel[((size_t)h * L + row) * Lk + key] : 0.f;
+      acc[j][e] = 0.f;
+      if (key < Lk) in_keys |= 1u << (2 * j + (e & 1));
+    }
+
+  for (int b = 0; b < B; ++b) {
+    if (b + DREL_STAGES - 1 < B) issue(b + DREL_STAGES - 1);
+    lako::cp_async_commit();
+    if (b + 1 < B) load(b + 1, next);
+    lako::cp_async_wait<DREL_STAGES - 1>();
+    __syncthreads();
+    if (active) {
+      lako::RowTerms terms[2];
+      uint32_t live_keys = 0;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        terms[r] = {cur.ml[r].x, cur.ml[r].y, __frcp_rn(cur.ml[r].y), cur.dv[r]};
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (cur.live[j][e]) live_keys |= 1u << (2 * j + e);
+      const bf16* st = ring + (b % DREL_STAGES) * STAGE;
+      float s[KT][4], dp[KT][4];
+      lako::warp_s_dp<D, KT>(st + rw * 16 * P, st + (DREL_ROWS + rw * 16) * P,
+                             st + (2 * DREL_ROWS + wk) * P,
+                             st + (2 * DREL_ROWS + DREL_KEYS + wk) * P, P, n_tiles, s, dp);
+      lako::warp_p_ds<KT>(s, dp, rl, in_keys, live_keys, terms, row0 < L, row1 < L);
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += dp[j][e];
+    }
+    __syncthreads();  // this stage is refilled DREL_STAGES rows later
+    cur = next;
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int j = 0; j < KT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + wk + j * 8 + t * 2 + (e & 1), row = e < 2 ? row0 : row1;
+      if (row < L && key < Lk) drel[((size_t)h * L + row) * Lk + key] = acc[j][e];
+    }
+}
+
 // Set a kernel's dynamic shared memory once, so that later launches can be
 // captured in a CUDA graph.
 template <typename Kernel>
@@ -418,16 +577,29 @@ int launch_drel(const void* q, const void* k, const void* v, const void* rel,
                 const void* key_mask, const void* stats, const void* dvec, const void* dout,
                 void* drel, int B, int H, int L, int Lk, cudaStream_t s) {
   static bool configured = false;
-  constexpr size_t smem = drel_smem_bytes<D>();
-  cudaError_t err = configure(bwd_drel_kernel<T, D>, smem, configured);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lk + TILE - 1) / TILE, (L + TILE - 1) / TILE, H);
-  bwd_drel_kernel<T, D><<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(rel), static_cast<const uint8_t*>(key_mask),
-      static_cast<const float2*>(stats), static_cast<const float*>(dvec),
-      static_cast<const T*>(dout), static_cast<float*>(drel), B, H, L, Lk);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same_v<T, bf16>) {
+    constexpr size_t smem = drel_mma_smem_bytes<D>();
+    cudaError_t err = configure(bwd_drel_mma_kernel<D>, smem, configured);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((Lk + DREL_KEYS - 1) / DREL_KEYS, (L + DREL_ROWS - 1) / DREL_ROWS, H);
+    bwd_drel_mma_kernel<D><<<grid, DREL_THREADS, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const float*>(rel), static_cast<const uint8_t*>(key_mask),
+        static_cast<const float2*>(stats), static_cast<const float*>(dvec),
+        static_cast<const bf16*>(dout), static_cast<float*>(drel), B, H, L, Lk);
+    return (int)cudaGetLastError();
+  } else {
+    constexpr size_t smem = drel_smem_bytes<D>();
+    cudaError_t err = configure(bwd_drel_kernel<T, D>, smem, configured);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((Lk + TILE - 1) / TILE, (L + TILE - 1) / TILE, H);
+    bwd_drel_kernel<T, D><<<grid, THREADS, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const float*>(rel), static_cast<const uint8_t*>(key_mask),
+        static_cast<const float2*>(stats), static_cast<const float*>(dvec),
+        static_cast<const T*>(dout), static_cast<float*>(drel), B, H, L, Lk);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace

@@ -11,16 +11,32 @@
 // (stride 0) costs no copy; a null bias adds nothing. Every row sees all Lk
 // keys at once, Lk <= 512 (the wrapper refuses more).
 //
-// What bounds it on the H100: at the encoder's shape (16,16,130,64) it reads
+// What bounds it on the H100: at the encoder's shape (16,16,130,64) it moves
 // 17 MB of q/k/v/out and 17 MB of f32 bias for 1.1 GFLOP, so memory traffic
 // bounds it (about 10 us at 3.35 TB/s); S and P never reach device memory.
-// - bf16 with D = 64 or 128 runs on the tensor cores, in K1's tiling
-//   (csrc/flash_streamed_fwd.cu): one block per (b*h, 64 query rows), each of
-//   4 warps owns 16 rows with its q fragments in registers, and Q.K^T and P.V
-//   are mma.sync m16n8k16 over 64-key tiles. The exact softmax takes two
-//   passes over the keys: the first keeps each row's running max and sum,
-//   the second recomputes the logits (the bias's second read mostly hits L2)
-//   and feeds P = exp(S - m) / sum, rounded to bf16, to P.V as the A operand.
+// - bf16 with D = 64 or 128 runs on the tensor cores in one pass over the
+//   keys, so that every byte is read once: one block per (b*h, slab of up to
+//   12 warps x 16 query rows; at L = 130 one block of 9 warps per (b, h)).
+//   Q's rows and K (one cp.async group), then V (the next), are copied once
+//   into padded shared memory, V's copy overlapping Q.K^T. Each thread first
+//   issues all its bias loads (8 bytes a pair of keys when the key stride is
+//   1, else through the strides), which seed S; Q.K^T is mma.sync m16n8k16 on
+//   ldmatrix fragments, keys padded to 16 (144 x 144 at L = Lk = 130, where
+//   64-wide tiles would pad to 192). The exact row max m, the row sum l of
+//   exp(S - m) and P = exp(S - m) / l, rounded to bf16, are formed in the C
+//   fragments, which become P.V's A operand; V's B fragments come through
+//   ldmatrix.trans. l is summed per 64 keys and rescaled as the max grows,
+//   the order of the two-pass version this one replaced, so that P rounds
+//   as it did and the encoder route's greedy tokens stay as they were
+//   (summed after the exact max, as the JAX body sums it, l moved by f32
+//   ulps, P's bf16 rounding with it, and the tokens at near-ties). The
+//   division is div_rn's: div.rn's slow-path check dominated the kernel's
+//   time. Up to 160 keys S stays in
+//   registers (launch_mma_tier<., ., true>); above, each thread keeps its
+//   fragments of S in shared memory (16 rows x Lk x 4 bytes a warp), with up
+//   to 4 warps a block and V over K's buffer where both do not fit.
+//   mma.sync rather than wgmma: a 64-row wgmma tile pads L = 130 to 192 rows,
+//   16-row warps to 144, and the products are not what bounds the kernel.
 // - float32, and bf16 at other head dims, run on CUDA-core FMAs: one block
 //   per (b*h, 32 query rows) holds its rows' logits in shared memory,
 //   streams K and then V through shared memory in chunks of 128 keys
@@ -212,177 +228,283 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- bfloat16 at D = 64 or 128: tensor cores (mma.sync m16n8k16) ---------
+// ---- bfloat16 at D = 64 or 128: tensor cores (mma.sync m16n8k16), one pass -
 
-constexpr int TQ = 64;  // query rows per block
-constexpr int TK = 64;  // keys per tile
-constexpr int MMA_WARPS = 4;  // 16 query rows each
-constexpr int MMA_THREADS = 32 * MMA_WARPS;
-constexpr int PAD = 8;  // bf16 row padding: fragment reads hit 32 distinct banks
+constexpr int PAD = 8;             // bf16 row padding: ldmatrix rows hit distinct banks
+constexpr int REG_KEYS = 160;      // up to this many keys a warp's logits stay in registers
+constexpr int REG_TILES = REG_KEYS / 8;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory one block may use (227 KB)
 
 using bf16 = __nv_bfloat16;
-using lako::ld_pair;
 using lako::mma_bf16;
 using lako::pack_bf16;
 
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  // qs [TQ][D+PAD], ks [TK][D+PAD], vt [D][TK+PAD] (V transposed)
-  return sizeof(bf16) * (size_t)(TQ * (D + PAD) + TK * (D + PAD) + D * (TK + PAD));
+// warps (16 query rows each) per block, at most: the register tier's logits
+// and output fragments take 130 registers a thread at D = 64, 166 at 128
+template <int D, bool kRegLogits>
+constexpr int max_warps() { return kRegLogits ? (D == 64 ? 12 : 8) : 4; }
+
+template <typename BT> __device__ __forceinline__ float2 load_pair(const BT* p);
+template <> __device__ __forceinline__ float2 load_pair<float>(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+template <> __device__ __forceinline__ float2 load_pair<bf16>(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// rows [r0, r0+64) of a (rows, D) bf16 matrix, zero at or past n_rows, into
-// dst [64][D+PAD]; transposed into dst [D][TK+PAD] (V as the B operand)
-template <int D, bool kTransposed>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, int n_rows) {
-  for (int i = threadIdx.x; i < 64 * D / 8; i += MMA_THREADS) {
-    const int r = i % 64, c = (i / 64) * 8;  // neighbouring threads: neighbouring rows
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n_rows) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    if constexpr (kTransposed) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[(c + j) * (TK + PAD) + r] = e[j];
+// c[0], c[1] = the bias at keys (key, key+1) of the row at br (null: no bias,
+// or a row past L), as the logits' starting value; -inf past Lk. `vec`: the
+// pair is contiguous and aligned, one 8-byte (f32) or 4-byte (bf16) load.
+template <typename BT>
+__device__ __forceinline__ void bias_pair(float* c, const BT* br, int key, int Lk, int sj,
+                                          bool vec) {
+  if (key + 1 < Lk) {
+    if (br == nullptr) {
+      c[0] = c[1] = 0.f;
+    } else if (vec) {
+      const float2 x = load_pair(br + key);
+      c[0] = x.x;
+      c[1] = x.y;
     } else {
-      *reinterpret_cast<uint4*>(dst + r * (D + PAD) + c) = val;
+      c[0] = lako::to_f32(br[(long long)key * sj]);
+      c[1] = lako::to_f32(br[(long long)(key + 1) * sj]);
     }
+  } else {
+    c[0] = key >= Lk ? -INFINITY : br == nullptr ? 0.f : lako::to_f32(br[(long long)key * sj]);
+    c[1] = -INFINITY;
   }
 }
 
-template <int D, typename BT>
-__global__ void __launch_bounds__(MMA_THREADS)
+// One block per (b*h, slab of W*16 query rows), W warps of 16 rows. Q's rows
+// and K, then V, are copied once into shared memory with cp.async; each warp
+// forms S = bias + Q.K^T for all its keys (bias first, then the products in
+// d order, as the two-pass version did), takes the exact row max and the sum
+// of e = exp(S - max), and feeds P = e / sum, rounded to bf16, to P.V. With
+// kRegLogits (Lk <= REG_KEYS) S stays in registers; else each thread keeps
+// its fragments of S in shared memory (es, fragment-major, private to it).
+// v_apart: V has its own region and its copy overlaps Q.K^T; otherwise it
+// reuses K's once every warp is done with K.
+template <int D, typename BT, bool kRegLogits>
+__global__ void __launch_bounds__(32 * max_warps<D, kRegLogits>())
 fused_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const BT* __restrict__ bias,
                            bf16* __restrict__ out, int H, int L, int Lk,
-                           int sb, int sh, int si, int sj) {
-  constexpr int QS = D + PAD;  // row stride of qs and ks
-  constexpr int VS = TK + PAD;  // row stride of vt
-  constexpr int NT = TK / 8;    // 8-key column tiles of S
-  constexpr int KD = D / 16;    // 16-deep steps over d
-  constexpr int NO = D / 8;     // 8-wide column tiles of O
+                           int sb, int sh, int si, int sj, int v_apart) {
+  constexpr int P = D + PAD;  // row pitch of qs, ks, vs
+  constexpr int NO = D / 8;   // 8-wide column tiles of O
+  const int W = blockDim.x / 32;
+  const int lkp = (Lk + 15) & ~15;  // keys padded to P.V's k-depth
+  const int nt = lkp / 8;           // 8-key column tiles of S
   extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);
-  bf16* ks = qs + TQ * QS;
-  bf16* vt = ks + TK * QS;
+  bf16* qs = reinterpret_cast<bf16*>(smem4);  // [W*16][P]
+  bf16* ks = qs + W * 16 * P;                 // [lkp][P]
+  bf16* vs = v_apart ? ks + lkp * P : ks;     // [lkp][P]
+  float4* es = reinterpret_cast<float4*>(vs + lkp * P);  // [W][nt][32] (shared-memory tier)
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.y * TQ;
+  const int q0 = blockIdx.y * W * 16;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment row group, column pair
-  const bf16* kg = k + (size_t)bh * Lk * D;
+  const int t = lane % 4;  // mma fragment column pair
   const bf16* vg = v + (size_t)bh * Lk * D;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;  // this thread's rows
-  // their bias rows; null without a bias or past L (those rows are not stored)
+
+  // copy group 0: Q's rows and K; group 1: V
+  lako::cp_async_rows<D>(qs, P, q + ((size_t)bh * L + q0) * D, W * 16, L - q0);
+  lako::cp_async_rows<D>(ks, P, k + (size_t)bh * Lk * D, lkp, Lk);
+  lako::cp_async_commit();
+  if (v_apart) lako::cp_async_rows<D>(vs, P, vg, lkp, Lk);
+  lako::cp_async_commit();
+
+  const int row0 = q0 + warp * 16 + lane / 4, row1 = row0 + 8;  // this thread's rows
+  const bool active = q0 + warp * 16 < L;  // a warp wholly past L only copies
   const long long base = (long long)b * sb + (long long)h * sh;
   const BT* bias0 = bias != nullptr && row0 < L ? bias + base + (long long)row0 * si : nullptr;
   const BT* bias1 = bias != nullptr && row1 < L ? bias + base + (long long)row1 * si : nullptr;
-
-  load_tile<D, false>(qs, q + (size_t)bh * L * D, q0, L);
-  __syncthreads();
-  uint32_t qf[KD][4];  // this warp's q fragments, reused for every key tile
-  const bf16* qw = qs + warp * 16 * QS;
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    qf[kk][0] = ld_pair(qw + g * QS + kk * 16 + t * 2);
-    qf[kk][1] = ld_pair(qw + (g + 8) * QS + kk * 16 + t * 2);
-    qf[kk][2] = ld_pair(qw + g * QS + kk * 16 + 8 + t * 2);
-    qf[kk][3] = ld_pair(qw + (g + 8) * QS + kk * 16 + 8 + t * 2);
-  }
-
-  // S = q k^T + bias for the key tile at k0 in ks: rows (row0, row1), keys
-  // k0 + j*8 + t*2 + {0,1}; -inf past Lk (no weight). The tile's bias is
-  // loaded first, so that its latency hides behind the products.
-  auto logits = [&](int k0, float (&s)[NT][4]) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + t * 2 + (e & 1);
-        const BT* br = e < 2 ? bias0 : bias1;
-        s[j][e] = key >= Lk ? -INFINITY
-                  : br != nullptr ? lako::to_f32(br[(long long)key * sj]) : 0.f;
-      }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const bf16* kp = ks + (j * 8 + g) * QS + kk * 16 + t * 2;
-        mma_bf16(s[j], qf[kk], ld_pair(kp), ld_pair(kp + 8));
-      }
+  const bool vec = sj == 1 && ((si | sb | sh) & 1) == 0 &&
+                   reinterpret_cast<uintptr_t>(bias) % (2 * sizeof(BT)) == 0;
+  // key tile j's logits start as the bias: rows (row0, row1), keys j*8 + t*2 + {0,1}
+  auto bias_tile = [&](int j, float* c) {
+    bias_pair(c, bias0, j * 8 + t * 2, Lk, sj, vec);
+    bias_pair(c + 2, bias1, j * 8 + t * 2, Lk, sj, vec);
   };
+  const bf16* qw = qs + warp * 16 * P;
 
-  // pass 1: each row's max m and sum of exp(S - m), rescaled as m grows
-  float m[2] = {-1e30f, -1e30f};  // below any real logit (>= about -1e9)
-  float l[2] = {0.f, 0.f};        // this thread's share of the row sums
-  for (int k0 = 0; k0 < Lk; k0 += TK) {
-    __syncthreads();  // the previous tile's ks is no longer read
-    load_tile<D, false>(ks, kg, k0, Lk);
-    __syncthreads();
-    float s[NT][4];
-    logits(k0, s);
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // a row's keys are spread over the 4 threads of its group
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      l[r] *= expf(m[r] - mx[r]);
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      l[0] += expf(s[j][0] - m[0]) + expf(s[j][1] - m[0]);
-      l[1] += expf(s[j][2] - m[1]) + expf(s[j][3] - m[1]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-
-  // pass 2: P = exp(S - m) / sum, rounded to bf16, times V
   float o[NO][4];
 #pragma unroll
   for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  for (int k0 = 0; k0 < Lk; k0 += TK) {
-    __syncthreads();  // the previous tile's ks and vt are no longer read
-    load_tile<D, false>(ks, kg, k0, Lk);
-    load_tile<D, true>(vt, vg, k0, Lk);
-    __syncthreads();
-    float s[NT][4];
-    logits(k0, s);
-    uint32_t pf[NT][2];
+  // O += P.V over keys [16 kk, 16 kk + 16), a: P's A fragment
+  auto pv = [&](int kk, const uint32_t (&a)[4]) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      pf[j][0] = pack_bf16(expf(s[j][0] - m[0]) / l[0], expf(s[j][1] - m[0]) / l[0]);
-      pf[j][1] = pack_bf16(expf(s[j][2] - m[1]) / l[1], expf(s[j][3] - m[1]) / l[1]);
+    for (int jd = 0; jd < NO; jd += 2) {
+      uint32_t bv[4];
+      lako::ldmatrix_x4_trans(bv, vs + (kk * 16 + (lane & 15)) * P + (jd + (lane >> 4)) * 8);
+      mma_bf16(o[jd], a, bv[0], bv[1]);
+      mma_bf16(o[jd + 1], a, bv[2], bv[3]);
     }
+  };
+  // The exact row max m and the row sum l of exp(S - m), taken as the
+  // two-pass kernel took them, so that P rounds as it did: per 64 keys, the
+  // max grown over the keys so far and l rescaled by exp(m_old - m_new).
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f}, rcp[2];
+  // a row's keys are spread over the 4 threads of its group
+  auto row_reduce = [](float (&x)[2], bool is_max) {
 #pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0],
-                             pf[2 * kk + 1][1]};
+    for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        const bf16* vp = vt + (j * 8 + g) * VS + kk * 16 + t * 2;
-        mma_bf16(o[j], a, ld_pair(vp), ld_pair(vp + 8));
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float y = __shfl_xor_sync(0xffffffffu, x[r], off);
+        x[r] = is_max ? fmaxf(x[r], y) : x[r] + y;
+      }
+  };
+  auto grow = [&](float (&mt)[2]) {  // the max after another 64 keys
+    row_reduce(mt, true);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] *= expf(m[r] - mt[r]);
+      m[r] = mt[r];
+    }
+  };
+  auto add = [&](float a, float b, int r) { l[r] += expf(a - m[r]) + expf(b - m[r]); };
+  auto finish = [&] {
+    row_reduce(l, false);
+    rcp[0] = __frcp_rn(l[0]);
+    rcp[1] = __frcp_rn(l[1]);
+  };
+  // P = exp(S - m) / l
+  auto prob = [&](float x, int r) { return lako::div_rn(expf(x - m[r]), l[r], rcp[r]); };
+
+  if constexpr (kRegLogits) {
+    float s[REG_TILES][4];
+#pragma unroll
+    for (int j = 0; j < REG_TILES; ++j)
+      if (j < nt) bias_tile(j, s[j]);  // every bias load in flight before the products
+    lako::cp_async_wait<1>();
+    __syncthreads();
+    if (active) {
+#pragma unroll
+      for (int c0 = 0; c0 < D; c0 += 32) {
+        uint32_t a0[4], a1[4];
+        lako::load_a_x2(a0, a1, qw, P, c0);
+#pragma unroll
+        for (int j = 0; j < REG_TILES; ++j) {
+          if (j < nt) {
+            uint32_t bk[4];
+            lako::load_b_rows(bk, ks, P, j * 8, c0);
+            mma_bf16(s[j], a0, bk[0], bk[1]);
+            mma_bf16(s[j], a1, bk[2], bk[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j0 = 0; j0 < REG_TILES; j0 += 8) {
+        if (j0 < nt) {
+          float mt[2] = {m[0], m[1]};
+#pragma unroll
+          for (int j = j0; j < j0 + 8 && j < REG_TILES; ++j)
+            if (j < nt) {
+              mt[0] = fmaxf(mt[0], fmaxf(s[j][0], s[j][1]));
+              mt[1] = fmaxf(mt[1], fmaxf(s[j][2], s[j][3]));
+            }
+          grow(mt);
+#pragma unroll
+          for (int j = j0; j < j0 + 8 && j < REG_TILES; ++j)
+            if (j < nt) {
+              add(s[j][0], s[j][1], 0);
+              add(s[j][2], s[j][3], 1);
+            }
+        }
+      }
+      finish();
+    }
+    lako::cp_async_wait<0>();
+    __syncthreads();
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < REG_TILES / 2; ++kk)
+        if (kk < nt / 2) {
+          const float(&x)[4] = s[2 * kk];
+          const float(&y)[4] = s[2 * kk + 1];
+          const uint32_t a[4] = {pack_bf16(prob(x[0], 0), prob(x[1], 0)),
+                                 pack_bf16(prob(x[2], 1), prob(x[3], 1)),
+                                 pack_bf16(prob(y[0], 0), prob(y[1], 0)),
+                                 pack_bf16(prob(y[2], 1), prob(y[3], 1))};
+          pv(kk, a);
+        }
+    }
+  } else {
+    float4* ew = es + warp * nt * 32 + lane;  // this thread's tile j at ew[32 j]
+    float c[4];
+    bias_tile(0, c);
+    lako::cp_async_wait<1>();
+    __syncthreads();
+    if (active) {
+      uint32_t qf[D / 16][4];
+#pragma unroll
+      for (int c0 = 0; c0 < D; c0 += 32) lako::load_a_x2(qf[c0 / 16], qf[c0 / 16 + 1], qw, P, c0);
+      for (int j = 0; j < nt; ++j) {
+        float next[4];
+        if (j + 1 < nt) bias_tile(j + 1, next);  // the next tile's bias in flight
+#pragma unroll
+        for (int c0 = 0; c0 < D; c0 += 32) {
+          uint32_t bk[4];
+          lako::load_b_rows(bk, ks, P, j * 8, c0);
+          mma_bf16(c, qf[c0 / 16], bk[0], bk[1]);
+          mma_bf16(c, qf[c0 / 16 + 1], bk[2], bk[3]);
+        }
+        ew[32 * j] = make_float4(c[0], c[1], c[2], c[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[e] = next[e];
+      }
+      for (int j0 = 0; j0 < nt; j0 += 8) {  // unrolled as the register tier's loops
+        float mt[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = j0; j < j0 + 8; ++j)
+          if (j < nt) {
+            const float4 x = ew[32 * j];
+            mt[0] = fmaxf(mt[0], fmaxf(x.x, x.y));
+            mt[1] = fmaxf(mt[1], fmaxf(x.z, x.w));
+          }
+        grow(mt);
+#pragma unroll
+        for (int j = j0; j < j0 + 8; ++j)
+          if (j < nt) {
+            const float4 x = ew[32 * j];
+            add(x.x, x.y, 0);
+            add(x.z, x.w, 1);
+          }
+      }
+      finish();
+    }
+    if (!v_apart) {
+      __syncthreads();  // every warp is done with K
+      lako::cp_async_rows<D>(vs, P, vg, lkp, Lk);
+      lako::cp_async_commit();
+    }
+    lako::cp_async_wait<0>();
+    __syncthreads();
+    if (active) {
+      for (int kk = 0; kk < nt / 2; ++kk) {
+        const float4 x = ew[32 * (2 * kk)], y = ew[32 * (2 * kk + 1)];
+        const uint32_t a[4] = {pack_bf16(prob(x.x, 0), prob(x.y, 0)),
+                               pack_bf16(prob(x.z, 1), prob(x.w, 1)),
+                               pack_bf16(prob(y.x, 0), prob(y.y, 0)),
+                               pack_bf16(prob(y.z, 1), prob(y.w, 1))};
+        pv(kk, a);
       }
     }
   }
+
+  if (active) {
 #pragma unroll
-  for (int j = 0; j < NO; ++j) {
-    const int col = j * 8 + t * 2;
-    if (row0 < L)
-      *reinterpret_cast<uint32_t*>(out + ((size_t)bh * L + row0) * D + col) =
-          pack_bf16(o[j][0], o[j][1]);
-    if (row1 < L)
-      *reinterpret_cast<uint32_t*>(out + ((size_t)bh * L + row1) * D + col) =
-          pack_bf16(o[j][2], o[j][3]);
+    for (int j = 0; j < NO; ++j) {
+      const int col = j * 8 + t * 2;
+      if (row0 < L)
+        *reinterpret_cast<uint32_t*>(out + ((size_t)bh * L + row0) * D + col) =
+            pack_bf16(o[j][0], o[j][1]);
+      if (row1 < L)
+        *reinterpret_cast<uint32_t*>(out + ((size_t)bh * L + row1) * D + col) =
+            pack_bf16(o[j][2], o[j][3]);
+    }
   }
 }
 
@@ -393,18 +515,52 @@ int set_smem(Kernel kernel, size_t smem) {
                                    (int)smem);
 }
 
+// Picks the block: as many warps as the tier allows and shared memory holds,
+// then spread evenly over the fewest blocks that cover L's 16-row tiles (one
+// block per (b, h) at the encoder's L = 130: 9 warps).
+template <int D, typename BT, bool kRegLogits>
+int launch_mma_tier(const void* q, const void* k, const void* v, const void* bias, void* out,
+                    int B, int H, int L, int Lk, int sb, int sh, int si, int sj,
+                    cudaStream_t stream) {
+  auto kernel = fused_attention_mma_kernel<D, BT, kRegLogits>;
+  static bool configured = false;  // once, so later launches can be graph-captured
+  if (!configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const int lkp = (Lk + 15) & ~15;
+  const int row_tiles = (L + 15) / 16;
+  const size_t kv = (size_t)lkp * (D + PAD) * sizeof(bf16);
+  const size_t per_warp = 16 * (D + PAD) * sizeof(bf16) +
+                          (kRegLogits ? 0 : (size_t)lkp * 16 * sizeof(float));
+  int warps = row_tiles < max_warps<D, kRegLogits>() ? row_tiles : max_warps<D, kRegLogits>();
+  int v_apart = 1;
+  auto smem = [&] { return (v_apart ? 2 : 1) * kv + warps * per_warp; };
+  if (smem() > SMEM_LIMIT) v_apart = 0;
+  while (warps > 1 && smem() > SMEM_LIMIT) --warps;
+  const int blocks = (row_tiles + warps - 1) / warps;
+  warps = (row_tiles + blocks - 1) / blocks;
+  if (smem() > SMEM_LIMIT || (kRegLogits && !v_apart) || blocks > 65535)
+    return (int)cudaErrorInvalidValue;
+  kernel<<<dim3(B * H, blocks), 32 * warps, smem(), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const BT*>(bias), static_cast<bf16*>(out), H, L, Lk, sb, sh, si, sj,
+      v_apart);
+  return (int)cudaGetLastError();
+}
+
+// Instantiations (D x bias type float|bf16 x tier), registers a thread as
+// ptxas reports them for sm_90a (chip_smoke.py prints them), no spills in any:
+//   <64, *, true> 130   <128, *, true> 166   <64, *, false> 64   <128, *, false> 96
 template <int D, typename BT>
 int launch_mma(const void* q, const void* k, const void* v, const void* bias, void* out,
                int B, int H, int L, int Lk, int sb, int sh, int si, int sj,
                cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<D>();
-  auto kernel = fused_attention_mma_kernel<D, BT>;
-  if (const int e = set_smem(kernel, smem)) return e;
-  const dim3 grid(B * H, (L + TQ - 1) / TQ);
-  kernel<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const BT*>(bias), static_cast<bf16*>(out), H, L, Lk, sb, sh, si, sj);
-  return (int)cudaGetLastError();
+  if (Lk <= REG_KEYS)
+    return launch_mma_tier<D, BT, true>(q, k, v, bias, out, B, H, L, Lk, sb, sh, si, sj, stream);
+  return launch_mma_tier<D, BT, false>(q, k, v, bias, out, B, H, L, Lk, sb, sh, si, sj, stream);
 }
 
 template <typename T, typename BT>

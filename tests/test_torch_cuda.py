@@ -33,7 +33,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _attn_inputs(B, H, L, Lk, D, dev, dtype, seed=0):
+def _attn_inputs(B, H, L, Lk, D, dev, dtype, seed=0, padding_row=True):
     rng = np.random.default_rng(seed)
     # q at the scale T5's init gives it (std d_kv**-0.5): logits ~N(0, 1)
     q = rng.normal(size=(B, H, L, D)) * D ** -0.5
@@ -41,7 +41,8 @@ def _attn_inputs(B, H, L, Lk, D, dev, dtype, seed=0):
     rel = rng.normal(size=(H, L, Lk)) * 0.5
     mask = rng.random((B, Lk)) < 0.6
     mask[:, 0] = True
-    mask[-1] = False             # a padding row: every key masked
+    if padding_row:
+        mask[-1] = False         # a padding row: every key masked
     to = lambda a, t: torch.tensor(a, dtype=t, device=dev)  # noqa: E731
     return (to(q, dtype), to(k, dtype), to(v, dtype), to(rel, torch.float32),
             to(mask, torch.bool))
@@ -108,6 +109,34 @@ def test_streamed_backward_kernels_match_plain(cuda_device, dtype, shape):
     assert k1.streamed_attention.launches == k1_before + 1
     assert [f.launches for f in counters] == [n + 2 for n in before]
     _assert_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("B,H,L,Lk,D", [(1, 4, 130, 130, 64), (5, 4, 130, 130, 64),
+                                         (3, 2, 37, 45, 64), (16, 16, 130, 130, 64),
+                                         (5, 2, 130, 130, 128)])
+def test_drel_kernel_edges_and_bitwise_repeat(cuda_device, B, H, L, Lk, D):
+    """K2c in bf16 on the tensor cores: one batch row, an odd batch, a short
+    ragged key edge, both head dims; within 3e-2 of the plain version's
+    largest magnitude, and bitwise the same in a second launch (each element
+    is summed over the batch in one fixed order, with no atomics). B=1 has no
+    fully masked row, whose dS is 0 everywhere."""
+    q, k, v, rel, mask = _attn_inputs(B, H, L, Lk, D, cuda_device, torch.bfloat16,
+                                      padding_row=B > 1)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(5),
+                       device=cuda_device).to(torch.bfloat16)
+    out, stats = k1.streamed_attention_fwd_reference(q, k, v, rel, mask)
+    dvec = (dout.float() * out.float()).sum(-1)
+    args = (q, k, v, rel, mask, stats, dvec, dout)
+    before = k1.streamed_attention_bwd_drel.launches
+    first = k1.streamed_attention_bwd_drel(*args)
+    second = k1.streamed_attention_bwd_drel(*args)
+    torch.cuda.synchronize()
+    assert k1.streamed_attention_bwd_drel.launches == before + 2
+    want = k1.streamed_attention_bwd_drel_reference(*args)
+    assert first.shape == want.shape == (H, L, Lk) and first.dtype == torch.float32
+    assert bool(torch.isfinite(first).all())
+    assert _rel_err(first, want) <= 3e-2
+    assert torch.equal(first, second)
 
 
 def test_train_step_kernels_against_plain(cuda_device):
@@ -210,12 +239,19 @@ def _dense_bias(rel, mask, shape):
     ((3, 2, 77, 200, 64), (1, 2, 77, 200)),
     ((2, 4, 130, 512, 128), (2, 1, 130, 512)),
     ((2, 3, 40, 56, 32), (2, 3, 40, 56)),
+    ((2, 4, 130, 257, 64), (2, 4, 130, 257)),
+    ((2, 4, 130, 512, 64), (1, 4, 130, 512)),
+    ((2, 4, 130, 257, 128), (2, 4, 130, 257)),
+    ((2, 3, 1, 40, 64), (1, 3, 1, 40)),
+    ((2, 2, 24, 7, 128), (2, 1, 24, 7)),
 ])
 def test_fused_attention_kernel_matches_plain(cuda_device, dtype, atol, shape, bias_shape):
     """K4 against its plain version, a fully masked row included, with full
-    and broadcast f32 biases; a bf16 bias too; more than 512 keys raises.
-    bf16 at head dims 64 and 128 takes the tensor-core kernel, at 32 the
-    CUDA-core one."""
+    and broadcast (batch or head) f32 biases; a bf16 bias and none too; more
+    than 512 keys raises. bf16 at head dims 64 and 128 takes the tensor-core
+    kernel (logits in registers up to 160 keys, in shared memory at 257 and
+    512; odd Lk reads the bias one element at a time; L=1; Lk < 16), at 32
+    the CUDA-core one."""
     q, k, v, rel, mask = _attn_inputs(*shape, cuda_device, dtype)
     bias = _dense_bias(rel, mask, bias_shape)
     before = k4.fused_attention.launches

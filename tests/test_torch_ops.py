@@ -88,11 +88,13 @@ def _assert_grads_close(got, want):
             np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-4, err_msg=name)
 
 
-@pytest.mark.parametrize("B,H,L,Lk,D", [(3, 2, 300, 330, 16), (2, 2, 37, 45, 8)])
+@pytest.mark.parametrize("B,H,L,Lk,D", [(3, 2, 300, 330, 16), (2, 2, 37, 45, 8),
+                                         (5, 2, 130, 130, 8)])
 def test_streamed_gradients_match_jax_kernel(B, H, L, Lk, D):
     """The backward (plain K2a/K2b/K2c on the CPU) against jax.grad of the
     interpreted Pallas kernel, on inputs without a fully masked row (the JAX
-    kernel's logsumexp is wrong there; see the next test)."""
+    kernel's logsumexp is wrong there; see the next test); an odd batch at
+    the encoder's L = Lk = 130, the batch K2c sums drel over."""
     q, k, v, rel, mask = _attn_inputs(B, H, L, Lk, D, padding_row=False)
     g = np.random.default_rng(1).normal(size=q.shape).astype(np.float32)
     kern = lambda *a: jax_streamed(*a, 128, 128, True)  # noqa: E731
@@ -230,10 +232,14 @@ def _jmaybe(a):
     (2, 3, 20, 20, 8, (1, 3, 20, 20)),
     (3, 2, 24, 31, 8, (3, 1, 24, 31)),
     (2, 2, 16, 16, 8, None),
+    (2, 2, 20, 257, 8, (2, 2, 20, 257)),
+    (2, 2, 12, 7, 8, (2, 1, 12, 7)),
 ])
 def test_fused_attention_plain_matches_jax_kernel(B, H, L, Lk, D, bias_shape):
     """Plain K4 vs the interpreted Pallas kernel, full and broadcast biases
-    and none, no fully masked row: within 1e-5."""
+    and none, no fully masked row: within 1e-5. Lk = 257 lies past the key
+    count up to which the CUDA kernel keeps the logits in registers (160),
+    Lk = 7 below its 16-key padding."""
     q, k, v, bias = _dense_inputs(B, H, L, Lk, D, bias_shape)
     out = k4.fused_attention(*_torch(q, k, v), _maybe(bias)).numpy()
     want = np.asarray(jax_fused(*map(jnp.asarray, (q, k, v)), _jmaybe(bias), True))
@@ -293,6 +299,25 @@ def test_fused_attention_wrapper_refuses_bad_inputs():
     with pytest.raises(ValueError, match="no kernel for device meta"):
         k4.fused_attention(*(t.to("meta") for t in (q, k, v, bias)))
     assert k4.fused_attention.launches == 0   # the CPU path launches nothing
+
+
+def test_corrected_reciprocal_quotient_is_the_ieee_quotient():
+    """csrc/common.cuh div_rn: x / y as q = x r, r = 1/y rounded, corrected
+    once, fma(fma(-q, y, x), r, q), equals the rounded f32 quotient for the
+    values K4 and K2c divide (exp of logits <= 0 over row sums >= 1). float64
+    stands in for the FMA (the product of two f32 is exact there)."""
+    rng = np.random.default_rng(0)
+    n = 2_000_000
+    x = rng.random(n, dtype=np.float32) ** np.float32(3)
+    y = (np.float32(1) + rng.random(n, dtype=np.float32) * np.float32(511)).astype(np.float32)
+
+    def fma(a, b, c):
+        return (a.astype(np.float64) * b + c).astype(np.float32)
+
+    r = np.float32(1) / y
+    q = x * r
+    assert np.count_nonzero(q != x / y) > n // 10      # the rounded product alone is not
+    np.testing.assert_array_equal(fma(fma(-q, y, x), r, q), x / y)
 
 
 def test_build_signature_takes_floats_and_uint32():
