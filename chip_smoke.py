@@ -6,7 +6,7 @@
 1. Prints the card (nvidia-smi name and power limit, torch's device name).
 2. Builds the CUDA kernels from ``lako_tpu_torch/csrc`` with nvcc and, beside
    the build, prints the registers and spill bytes ptxas reports for each
-   kernel of ``PTXAS_SOURCES`` (K4 and the streamed backward).
+   kernel of ``PTXAS_SOURCES`` (K1, K4 and the streamed backward).
 3. Checks each kernel against its plain PyTorch version on the card, at the
    main path's shapes and in its working types, and times the kernel, the
    plain version and, where one exists, the one PyTorch call that computes
@@ -18,8 +18,10 @@
    K1 streamed attention and its backward K2a/K2b/K2c (directly and through
    the autograd Function; drel bitwise equal in a second launch); K3 int8
    decode cross-attention; K4 whole-block attention with a dense bias (full
-   and broadcast, fully masked rows, 512 keys); achieved GB/s beside K4 and
-   K2c; K5
+   and broadcast, fully masked rows, 512 keys); achieved GB/s beside K1,
+   K2a, K2c and K4; K1 and K2a timed again at L = Lk = 512 against
+   scaled_dot_product_attention (the shape where the JAX default
+   flash_min_length=512 sends the encoder to K1); K5
    the one-pass 8-bit Adam update (codes, scales and u bitwise equal to the
    plain version, at a t5-large embedding leaf, a dense kernel leaf and the
    JAX package's micro shape); K6 its requantization-free fragment.
@@ -109,7 +111,7 @@ SOUNDS = ["meow", "woof", "moo", "quack", "croak", "buzz", "hoot", "howl", "neig
 
 
 # the sources whose kernels' registers and spills the run reports (ptxas -v)
-PTXAS_SOURCES = ("fused_attention.cu", "flash_streamed_bwd.cu")
+PTXAS_SOURCES = ("flash_streamed_fwd.cu", "fused_attention.cu", "flash_streamed_bwd.cu")
 
 
 def log(*args) -> None:
@@ -276,13 +278,64 @@ def check_streamed(dev):
     kern = device_ms(lambda: k1.streamed_attention(*args))
     library = device_ms(lambda: sdpa(q, k, v, bias))
     plain = (plain + device_ms(lambda: k1.streamed_attention_reference(*args))) / 2
-    log(f"  time at {label}: kernel {kern:.4f} ms, plain {plain:.4f} ms, "
-        f"scaled_dot_product_attention with the dense bf16 bias {library:.4f} ms "
-        f"(device time per call, CUDA graph of 20 calls)")
+    n_bytes = nbytes(*args, q)
+    log(f"  time at {label}: kernel {kern:.4f} ms ({n_bytes / kern / 1e6:.0f} GB/s achieved, "
+        f"{n_bytes / 1e6:.1f} MB), plain {plain:.4f} ms, scaled_dot_product_attention with "
+        f"the dense bf16 bias {library:.4f} ms (device time per call, CUDA graph of 20 calls)")
     B, H, L, D = q.shape
     return entry("streamed_attention", "lako_tpu_torch/csrc/flash_streamed_fwd.cu",
                  "lako_tpu/ops/flash_streamed.py:173", max_err, kern, plain,
-                 nbytes(*args, q), 4 * B * H * L * k.shape[2] * D, "bf16", library)
+                 n_bytes, 4 * B * H * L * k.shape[2] * D, "bf16", library)
+
+
+def check_streamed_long(dev):
+    """K1 and K2a at (16,16,512,64) bf16, where the JAX default
+    flash_min_length=512 sends the encoder to K1: each against its plain
+    version, then timed beside scaled_dot_product_attention (its forward for
+    K1, its whole backward for K2a), with the bound computed as for the main
+    rows. Logged only; the summary line keeps the main path's shapes."""
+    from lako_tpu_torch.ops import flash_streamed as k1
+
+    label = "(16,16,512,64) bf16, 4 fully masked rows"
+    log(f"K1 and K2a at L = Lk = 512, {label}:")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    q, k, v, rel, mask = attn_inputs(gen, dev, 16, 16, 512, 512, 64, torch.bfloat16, 4)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    fwd_args = (q, k, v, rel, mask)
+    out, stats = k1.streamed_attention_fwd_reference(*fwd_args)
+    args = (q, k, v, rel, mask, stats, (dout.float() * out.float()).sum(-1), dout)
+    compare(f"K1 at {label}", k1.streamed_attention(*fwd_args),
+            k1.streamed_attention_reference(*fwd_args), *K1_TOL["bf16"])
+    got, want = k1.streamed_attention_bwd_dkdv(*args), k1.streamed_attention_bwd_dkdv_reference(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dk", "dv"), got, want):
+        err, scale = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+        ok = err <= K2_TOL["bf16"] * scale and bool(torch.isfinite(a.float()).all())
+        log(f"  K2a {name} at {label}: max_abs_err={err:.3e} (max |plain| {scale:.3e}) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K2a {name} disagrees with its plain version at {label}")
+    del got, want, out
+    bias = dense_bias(rel, mask, q.dtype)
+    leaves = [q.clone().requires_grad_(), k.clone().requires_grad_(),
+              v.clone().requires_grad_(), bias.clone().requires_grad_()]
+    k1_ms = device_ms(lambda: k1.streamed_attention(*fwd_args))
+    sdpa_ms = device_ms(lambda: sdpa(q, k, v, bias))
+    k2a_ms = device_ms(lambda: k1.streamed_attention_bwd_dkdv(*args))
+    sdpa_bwd_ms = (device_ms(lambda: torch.autograd.grad(sdpa(*leaves), leaves, dout))
+                   - device_ms(lambda: sdpa(*leaves)))
+    B, H, L, D = q.shape
+    work = B * H * L * k.shape[2] * D
+    for name, ms, lib, n_bytes, ops in (
+            ("K1", k1_ms, f"scaled_dot_product_attention {sdpa_ms:.4f} ms", nbytes(*fwd_args, q),
+             4 * work),
+            ("K2a", k2a_ms, f"the backward of scaled_dot_product_attention {sdpa_bwd_ms:.4f} ms",
+             nbytes(*args, k, v), 8 * work)):
+        bound_ms, bound_by = bound(n_bytes, ops, "bf16")
+        log(f"  {name} at {label}: kernel {ms:.4f} ms ({n_bytes / ms / 1e6:.0f} GB/s achieved, "
+            f"{n_bytes / 1e6:.1f} MB), {lib}; bound {bound_ms:.4f} ms by {bound_by} "
+            f"({ops / 1e9:.3f} G operations), kernel {ms / bound_ms:.1f}x the bound "
+            f"(device time per call, CUDA graph of 20 calls)")
 
 
 def compare_bwd(label, got, want, dtype):
@@ -357,9 +410,9 @@ def check_streamed_bwd(dev):
         times[name] = (kern, plain)
         log(f"  time of {name} at (16,16,130,64) bf16: kernel {kern:.4f} ms, its plain "
             f"version {plain:.4f} ms (device time per call, CUDA graph of 20 calls)")
-    drel_bytes = nbytes(*args) + nbytes(args[3])
-    log(f"  drel: {drel_bytes / times['drel'][0] / 1e6:.0f} GB/s achieved "
-        f"({drel_bytes / 1e6:.1f} MB)")
+    for name, written in (("dkdv", nbytes(args[1], args[2])), ("drel", nbytes(args[3]))):
+        moved = nbytes(*args) + written
+        log(f"  {name}: {moved / times[name][0] / 1e6:.0f} GB/s achieved ({moved / 1e6:.1f} MB)")
 
     def k2_all():
         for fn in kernels.values():
@@ -1131,6 +1184,9 @@ def main() -> int:
 
     kernels = [check_streamed(dev), *check_streamed_bwd(dev), check_decode_cross(dev),
                check_fused(dev), *check_adam8(dev)]
+    check_streamed_long(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     runs = {"floor_proof": run_floor_proof(dev)}   # K5 and K6
     gc.collect()
     torch.cuda.empty_cache()

@@ -53,11 +53,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// two consecutive bf16 in shared memory as one register (lower index low)
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -77,6 +72,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+// 4 or 8 bytes from device memory to shared memory, asynchronously
+// (cp.async, through L1); zeros instead when !valid (src is then not read)
+template <int BYTES>
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src, bool valid) {
+  static_assert(BYTES == 4 || BYTES == 8, "cp.async.ca copies 4, 8 or 16 bytes");
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(d), "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -137,6 +142,33 @@ __device__ __forceinline__ void load_b_rows(uint32_t (&b)[4], const __nv_bfloat1
                                             int pitch, int n0, int c0) {
   const int lane = threadIdx.x % 32;
   ldmatrix_x4(b, tile + (n0 + (lane & 7)) * pitch + c0 + (lane >> 3) * 8);
+}
+
+// The A fragment (16 x 16) of columns [16 kk, 16 kk + 16) from the C
+// fragments x, y of the two 8-column tiles 2 kk and 2 kk + 1, rounded to bf16
+// (a product's result as the next product's left operand, e.g. P of P.V)
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&x)[4],
+                                       const float (&y)[4]) {
+  a[0] = pack_bf16(x[0], x[1]);
+  a[1] = pack_bf16(x[2], x[3]);
+  a[2] = pack_bf16(y[0], y[1]);
+  a[3] = pack_bf16(y[2], y[3]);
+}
+
+// acc (16 x D, C fragments of D / 8 column tiles) += a (16 x 16) . Y, where Y
+// is 16 rows x D, row-major in shared memory at y: Y's B fragments come
+// through ldmatrix.trans (V of P.V, dO of P^T.dO, Q of dS^T.Q)
+template <int D>
+__device__ __forceinline__ void mma_ay(float (&acc)[D / 8][4], const uint32_t (&a)[4],
+                                       const __nv_bfloat16* y, int pitch) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int jd = 0; jd < D / 8; jd += 2) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, y + (lane & 15) * pitch + (jd + (lane >> 4)) * 8);
+    mma_bf16(acc[jd], a, b[0], b[1]);
+    mma_bf16(acc[jd + 1], a, b[2], b[3]);
+  }
 }
 
 }  // namespace lako

@@ -6,13 +6,13 @@
 //   K2b _bwd_dq_kernel   (:319) -> lako_flash_streamed_bwd_dq
 //   K2c _bwd_drel_kernel (:344) -> lako_flash_streamed_bwd_drel
 //
-// Each kernel recomputes, for one (64-row q tile, 64-key tile) pair,
+// Each kernel recomputes, for its tiles of query rows and keys,
 //   S  = q.k + rel[h]          (a masked key: S = -1e9, as in the forward)
 //   P  = exp(S - m) / l        from the forward's row statistics (m, l)
 //   dP = dO.v,   dS = P (dP - Dv), and dS = 0 at a masked key
 // where Dv = rowsum(dO * O) in f32 comes from the wrapper. Then
 //   K2a: dV[k] = sum_q P[q,k] dO[q], dK[k] = sum_q dS[q,k] q[q]
-//        one block per (b, h, k tile), walking the q tiles;
+//        one block per (b, h, key slab), walking the q rows;
 //   K2b: dQ[q] = sum_k dS[q,k] k[k]
 //        one block per (b, h, q tile), walking the k tiles;
 //   K2c: drel[h,q,k] = sum_b dS[b,h,q,k]
@@ -36,11 +36,27 @@
 // move ~20 MB each (q, k, v, dO in bf16, the statistics, rel), a few us at
 // 3.35 TB/s; so on the CUDA cores (67 TFLOP/s f32 on NVIDIA's H100 SXM data
 // sheet) the products bound them, on the tensor cores the bytes and latency.
-// - K2a and K2b, and every kernel for f32 inputs, run every product on
-//   CUDA-core FMAs in f32: operands staged in shared memory as f32,
-//   transposed with a padded row stride so that the tile products read
-//   float4s, 64 x 64 tiles (the ragged edge at L=130 costs a third, nearly
-//   empty tile in each direction).
+// - K2b, and every kernel for f32 inputs, run every product on CUDA-core
+//   FMAs in f32: operands staged in shared memory as f32, transposed with a
+//   padded row stride so that the tile products read float4s, 64 x 64 tiles
+//   (the ragged edge at L=130 costs a third, nearly empty tile in each
+//   direction).
+// - K2a for bf16 runs all four products on the tensor cores with the keys on
+//   the mma M axis: each warp owns 16 keys, so S^T = K.Q^T and dP^T = V.dO^T
+//   are the same X.Y^T tile step as K2c's (attention_bwd_tile.cuh, K and V
+//   as X), P^T and dS^T are formed in the C fragments (warp_p_ds_cols: the
+//   row terms vary along the columns there), rounded to bf16 straight into
+//   the A operand of dV += P^T.dO and dK += dS^T.q, whose B fragments come
+//   through ldmatrix.trans on the row-major q/dO tiles. dK and dV stay in
+//   f32 registers for the whole walk and are written once, each element by
+//   one warp (no atomics). One block per (b, h, slab of up to 4 warps; at
+//   Lk = 130 three blocks of 3), walking the q rows 16 at a time through a
+//   3-stage cp.async ring that brings q, dO, their (m, l) and Dv, and the
+//   rel tile two steps ahead. The edges cost 16 keys and 8 or 16 rows, not
+//   64. K's and V's fragments are loaded from shared memory each step (held
+//   in registers at D = 64 they took the kernel to 205 registers and one
+//   block an SM; PERF.md); at D = 128, dK and dV alone take 128
+//   registers a thread.
 // - K2c for bf16 runs both products on the tensor cores (attention_bwd_tile.cuh:
 //   S = Q.K^T and dP = dO.V^T as mma.sync m16n8k16 on ldmatrix fragments of
 //   the row-major tiles, P and dS formed in the C fragments, P / l by
@@ -527,6 +543,184 @@ bwd_drel_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
+// ---- K2a for bf16: tensor cores, the keys on the M axis --------------------
+
+constexpr int DKDV_MAX_WARPS = 4;  // warps (16 keys each) per block, at most
+constexpr int DKDV_ROWS = 16;      // query rows per step of the walk
+constexpr int DKDV_STAGES = 3;     // steps in the shared-memory ring
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory one block may use (227 KB)
+
+// the rel tile's row pitch in floats: a warp's reads of it (rows 2 t + c,
+// keys g) fall in 32 distinct banks
+__host__ __device__ constexpr int dkdv_rel_pitch(int warps) { return warps * 16 + 4; }
+
+// one stage: q and dO rows [DKDV_ROWS][D+8] (bf16), the rel tile
+// [DKDV_ROWS][rel pitch] (f32), (m, l) and Dv of the rows
+template <int D>
+__host__ __device__ constexpr size_t dkdv_stage_bytes(int warps) {
+  return sizeof(bf16) * 2 * DKDV_ROWS * (D + 8) +
+         sizeof(float) * DKDV_ROWS * dkdv_rel_pitch(warps) +
+         (sizeof(float2) + sizeof(float)) * DKDV_ROWS;
+}
+
+// a block's K and V rows [warps*16][D+8], then the ring
+template <int D>
+constexpr size_t dkdv_mma_smem_bytes(int warps) {
+  return sizeof(bf16) * 2 * warps * 16 * (D + 8) + DKDV_STAGES * dkdv_stage_bytes<D>(warps);
+}
+
+// One block per (b*h, slab of W*16 keys), W warps of 16 keys. Copy group 0
+// holds the slab's K and V rows and step 0's tiles, group i step i's (query
+// rows [16 i, 16 i + 16)); step i + 2 is issued while step i computes.
+// rel_vec: floats per copy of the rel tile (4, 2 or 1, as Lk and rel's
+// alignment allow). Warps wholly past Lk only copy.
+template <int D>
+__global__ void __launch_bounds__(32 * DKDV_MAX_WARPS)
+bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const float* __restrict__ rel,
+                    const uint8_t* __restrict__ key_mask, const float2* __restrict__ stats,
+                    const float* __restrict__ dvec, const bf16* __restrict__ dout,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int L, int Lk,
+                    int rel_vec) {
+  constexpr int P = D + 8;                // row pitch of the bf16 tiles
+  constexpr int KT = DKDV_ROWS / 8;       // 8-row column tiles of S^T
+  constexpr int NO = D / 8;               // 8-wide column tiles of dK, dV
+  const int W = blockDim.x / 32;
+  const int KS = W * 16;                  // keys per block
+  const int RP = dkdv_rel_pitch(W);
+  const size_t stage_bytes = dkdv_stage_bytes<D>(W);
+  extern __shared__ float4 smem4[];
+  bf16* ks = reinterpret_cast<bf16*>(smem4);
+  bf16* vs = ks + KS * P;
+  char* ring = reinterpret_cast<char*>(vs + KS * P);
+  struct Stage {
+    bf16* q;
+    bf16* dout;
+    float* rel;
+    float2* ml;
+    float* dv;
+  };
+  auto stage = [&](int i) {
+    Stage st;
+    st.q = reinterpret_cast<bf16*>(ring + (i % DKDV_STAGES) * stage_bytes);
+    st.dout = st.q + DKDV_ROWS * P;
+    st.rel = reinterpret_cast<float*>(st.dout + DKDV_ROWS * P);
+    st.ml = reinterpret_cast<float2*>(st.rel + DKDV_ROWS * RP);
+    st.dv = reinterpret_cast<float*>(st.ml + DKDV_ROWS);
+    return st;
+  };
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int k0 = blockIdx.y * KS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int wk = warp * 16;                           // the warp's keys in the slab
+  const int key0 = k0 + wk + lane / 4, key1 = key0 + 8;  // this thread's keys
+  const bool active = k0 + wk < Lk;
+  const int n_steps = (L + DKDV_ROWS - 1) / DKDV_ROWS;
+
+  auto issue = [&](int i) {  // step i's tiles into its stage
+    const Stage st = stage(i);
+    const int r0 = i * DKDV_ROWS, n = L - r0;
+    lako::cp_async_rows<D>(st.q, P, q + ((size_t)bh * L + r0) * D, DKDV_ROWS, n);
+    lako::cp_async_rows<D>(st.dout, P, dout + ((size_t)bh * L + r0) * D, DKDV_ROWS, n);
+    // the rel tile: warp w copies rows w, w + W, ..., lanes along the keys
+    const float* relg = rel + ((size_t)h * L + r0) * Lk + k0;
+    for (int r = warp; r < DKDV_ROWS; r += W)
+      for (int c = lane * rel_vec; c < KS; c += 32 * rel_vec) {
+        const bool valid = r < n && k0 + c < Lk;
+        const float* src = valid ? relg + (size_t)r * Lk + c : rel;
+        float* dst = st.rel + r * RP + c;
+        if (rel_vec == 4) {
+          lako::cp_async16(dst, src, valid);
+        } else if (rel_vec == 2) {
+          lako::cp_async_small<8>(dst, src, valid);
+        } else {
+          lako::cp_async_small<4>(dst, src, valid);
+        }
+      }
+    for (int r = threadIdx.x; r < DKDV_ROWS; r += blockDim.x) {
+      const bool valid = r < n;
+      const size_t row = (size_t)bh * L + r0 + r;
+      lako::cp_async_small<8>(st.ml + r, valid ? stats + row : stats, valid);
+      lako::cp_async_small<4>(st.dv + r, valid ? dvec + row : dvec, valid);
+    }
+  };
+  lako::cp_async_rows<D>(ks, P, k + ((size_t)bh * Lk + k0) * D, KS, Lk - k0);
+  lako::cp_async_rows<D>(vs, P, v + ((size_t)bh * Lk + k0) * D, KS, Lk - k0);
+#pragma unroll
+  for (int i = 0; i < DKDV_STAGES - 1; ++i) {
+    if (i < n_steps) issue(i);
+    lako::cp_async_commit();
+  }
+
+  const bool in0 = key0 < Lk, in1 = key1 < Lk;
+  const bool live0 = in0 && key_mask[(size_t)b * Lk + key0] != 0;
+  const bool live1 = in1 && key_mask[(size_t)b * Lk + key1] != 0;
+  float dka[NO][4], dva[NO][4];  // keys (key0, key1) x columns 8 j + 2 t + {0, 1}
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  for (int i = 0; i < n_steps; ++i) {
+    lako::cp_async_wait<DKDV_STAGES - 2>();
+    __syncthreads();  // step i has landed; step i - 1's stage is no longer read
+    if (i + DKDV_STAGES - 1 < n_steps) issue(i + DKDV_STAGES - 1);
+    lako::cp_async_commit();
+    if (!active) continue;
+    const Stage st = stage(i);
+    const int n = min(DKDV_ROWS, L - i * DKDV_ROWS);  // real query rows in this step
+
+    // S^T = K.Q^T, dP^T = V.dO^T: keys (key0, key1), rows 8 j + 2 t + {0, 1}
+    float s[KT][4], dp[KT][4];
+    lako::warp_s_dp<D, KT>(ks + wk * P, vs + wk * P, st.q, st.dout, P, (n + 7) / 8, s, dp);
+    float rl[KT][4];
+    lako::RowTerms col[KT][2];
+    uint32_t in_rows = 0;
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int r = j * 8 + t * 2 + c;
+        const float2 ml = st.ml[r];
+        col[j][c] = {ml.x, ml.y, __frcp_rn(ml.y), st.dv[r]};
+        if (r < n) in_rows |= 1u << (2 * j + c);
+        rl[j][c] = st.rel[r * RP + wk + lane / 4];
+        rl[j][c + 2] = st.rel[r * RP + wk + lane / 4 + 8];
+      }
+    lako::warp_p_ds_cols<KT>(s, dp, rl, in_rows, col, in0, in1, live0, live1);
+
+    // dV += P^T.dO, dK += dS^T.q, 16 query rows a k-step
+#pragma unroll
+    for (int kk = 0; kk < KT / 2; ++kk)
+      if (16 * kk < n) {
+        uint32_t a[4];
+        lako::c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+        lako::mma_ay<D>(dva, a, st.dout + kk * 16 * P, P);
+        lako::c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+        lako::mma_ay<D>(dka, a, st.q + kk * 16 * P, P);
+      }
+  }
+  if (!active) return;
+
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const int c = j * 8 + t * 2;
+    if (in0) {
+      const size_t at = ((size_t)bh * Lk + key0) * D + c;
+      *reinterpret_cast<uint32_t*>(dk + at) = lako::pack_bf16(dka[j][0], dka[j][1]);
+      *reinterpret_cast<uint32_t*>(dv + at) = lako::pack_bf16(dva[j][0], dva[j][1]);
+    }
+    if (in1) {
+      const size_t at = ((size_t)bh * Lk + key1) * D + c;
+      *reinterpret_cast<uint32_t*>(dk + at) = lako::pack_bf16(dka[j][2], dka[j][3]);
+      *reinterpret_cast<uint32_t*>(dv + at) = lako::pack_bf16(dva[j][2], dva[j][3]);
+    }
+  }
+}
+
 // Set a kernel's dynamic shared memory once, so that later launches can be
 // captured in a CUDA graph.
 template <typename Kernel>
@@ -538,21 +732,54 @@ cudaError_t configure(Kernel kernel, size_t smem, bool& configured) {
   return err;
 }
 
+// Picks K2a's bf16 block: up to DKDV_MAX_WARPS warps, spread evenly over the
+// fewest blocks that cover Lk's 16-key tiles (three blocks of 3 warps per
+// (b, h) at Lk = 130). Registers a thread as ptxas reports them for sm_90a
+// (chip_smoke.py prints them): 128 at D = 64, 222 at 128, no spills.
+template <int D>
+int launch_dkdv_mma(const void* q, const void* k, const void* v, const void* rel,
+                    const void* key_mask, const void* stats, const void* dvec,
+                    const void* dout, void* dk, void* dv, int B, int H, int L, int Lk,
+                    cudaStream_t s) {
+  static bool configured = false;
+  cudaError_t err = configure(bwd_dkdv_mma_kernel<D>, SMEM_LIMIT, configured);
+  if (err != cudaSuccess) return (int)err;
+  const int key_tiles = (Lk + 15) / 16;
+  int warps = key_tiles < DKDV_MAX_WARPS ? key_tiles : DKDV_MAX_WARPS;
+  const int blocks = (key_tiles + warps - 1) / warps;
+  warps = (key_tiles + blocks - 1) / blocks;
+  const size_t smem = dkdv_mma_smem_bytes<D>(warps);
+  if (smem > SMEM_LIMIT || blocks > 65535) return (int)cudaErrorInvalidValue;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(rel);
+  const int rel_vec = Lk % 4 == 0 && at % 16 == 0 ? 4 : Lk % 2 == 0 && at % 8 == 0 ? 2 : 1;
+  bwd_dkdv_mma_kernel<D><<<dim3(B * H, blocks), 32 * warps, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(rel), static_cast<const uint8_t*>(key_mask),
+      static_cast<const float2*>(stats), static_cast<const float*>(dvec),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, L, Lk,
+      rel_vec);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* rel,
                 const void* key_mask, const void* stats, const void* dvec, const void* dout,
                 void* dk, void* dv, int B, int H, int L, int Lk, cudaStream_t s) {
-  static bool configured = false;
-  constexpr size_t smem = dkdv_smem_bytes<D>();
-  cudaError_t err = configure(bwd_dkdv_kernel<T, D>, smem, configured);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lk + TILE - 1) / TILE, H, B);
-  bwd_dkdv_kernel<T, D><<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(rel), static_cast<const uint8_t*>(key_mask),
-      static_cast<const float2*>(stats), static_cast<const float*>(dvec),
-      static_cast<const T*>(dout), static_cast<T*>(dk), static_cast<T*>(dv), H, L, Lk);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same_v<T, bf16>) {
+    return launch_dkdv_mma<D>(q, k, v, rel, key_mask, stats, dvec, dout, dk, dv, B, H, L, Lk, s);
+  } else {
+    static bool configured = false;
+    constexpr size_t smem = dkdv_smem_bytes<D>();
+    cudaError_t err = configure(bwd_dkdv_kernel<T, D>, smem, configured);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((Lk + TILE - 1) / TILE, H, B);
+    bwd_dkdv_kernel<T, D><<<grid, THREADS, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const float*>(rel), static_cast<const uint8_t*>(key_mask),
+        static_cast<const float2*>(stats), static_cast<const float*>(dvec),
+        static_cast<const T*>(dout), static_cast<T*>(dk), static_cast<T*>(dv), H, L, Lk);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int D>

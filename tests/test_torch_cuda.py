@@ -66,6 +66,57 @@ def _rel_err(a, b):
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
 
+# the bf16 kernels' edges: one row, one 16-row warp tile and one past it, a
+# ragged 9-warp slab; keys short of an 8-key tile, one 16-key tile, one past a
+# 64-key tile, a ragged 6-tile walk
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Lk", [7, 16, 65, 330])
+@pytest.mark.parametrize("L", [1, 16, 17, 145])
+def test_streamed_bf16_kernels_at_edges(cuda_device, L, Lk, D):
+    """K1 with statistics and K2a in bf16 against their plain versions, with
+    row 1 fully masked: out within 6e-2, (m, l) within 1e-4 relative ((-1e9,
+    Lk) exactly on the masked row), dK and dV within 3e-2 of their largest
+    magnitude; K2a bitwise the same in a second launch (no atomics)."""
+    q, k, v, rel, mask = _attn_inputs(2, 3, L, Lk, D, cuda_device, torch.bfloat16)
+    before = (k1.streamed_attention.launches, k1.streamed_attention_bwd_dkdv.launches)
+    out, stats = k1._forward(q, k, v, rel, mask, with_stats=True)
+    want_out, want_stats = k1.streamed_attention_fwd_reference(q, k, v, rel, mask)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=6e-2, atol=6e-2)
+    torch.testing.assert_close(stats, want_stats, rtol=1e-4, atol=1e-4)
+    assert stats[1, ..., 0].eq(-1e9).all() and stats[1, ..., 1].eq(Lk).all()
+    dout = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(6),
+                       device=cuda_device).to(torch.bfloat16)
+    args = (q, k, v, rel, mask, want_stats, (dout.float() * want_out.float()).sum(-1), dout)
+    first = k1.streamed_attention_bwd_dkdv(*args)
+    second = k1.streamed_attention_bwd_dkdv(*args)
+    torch.cuda.synchronize()
+    assert (k1.streamed_attention.launches, k1.streamed_attention_bwd_dkdv.launches) == (
+        before[0] + 1, before[1] + 2)
+    for got, again, want in zip(first, second, k1.streamed_attention_bwd_dkdv_reference(*args)):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        assert bool(torch.isfinite(got.float()).all())
+        assert _rel_err(got, want) <= 3e-2
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("L,Lk", [(17, 65), (145, 330), (130, 130)])
+def test_streamed_bf16_kernels_one_batch_row(cuda_device, L, Lk, D):
+    """B = 1, no fully masked row: K1 and K2a against their plain versions."""
+    q, k, v, rel, mask = _attn_inputs(1, 2, L, Lk, D, cuda_device, torch.bfloat16,
+                                      padding_row=False)
+    out, stats = k1._forward(q, k, v, rel, mask, with_stats=True)
+    want_out, want_stats = k1.streamed_attention_fwd_reference(q, k, v, rel, mask)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=6e-2, atol=6e-2)
+    torch.testing.assert_close(stats, want_stats, rtol=1e-4, atol=1e-4)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(7),
+                       device=cuda_device).to(torch.bfloat16)
+    args = (q, k, v, rel, mask, want_stats, (dout.float() * want_out.float()).sum(-1), dout)
+    for got, want in zip(k1.streamed_attention_bwd_dkdv(*args),
+                         k1.streamed_attention_bwd_dkdv_reference(*args)):
+        assert _rel_err(got, want) <= 3e-2
+
+
 def _assert_bwd_close(got, want, dtype):
     """f32: 2e-4 absolute on dq, dk, dv and drel within 3e-3 of its max (as
     the JAX package's test bounds it); bf16: max error over max magnitude

@@ -18,7 +18,11 @@ from lako_tpu.ops.decode_cross_attn import (
     xla_reference as jax_cross_reference,
 )
 from lako_tpu.ops.flash_attention import _xla_attention, fused_attention as jax_fused
-from lako_tpu.ops.flash_streamed import _xla_reference, streamed_attention as jax_streamed
+from lako_tpu.ops.flash_streamed import (
+    _streamed_fwd_impl,
+    _xla_reference,
+    streamed_attention as jax_streamed,
+)
 from lako_tpu_torch.ops import _build
 from lako_tpu_torch.ops import decode_cross_attn as k3
 from lako_tpu_torch.ops import flash_attention as k4
@@ -61,6 +65,46 @@ def test_streamed_plain_matches_jax(L, Lk):
     # weight; rows with a real key are unaffected by the padding.
     live = mask.any(axis=1)
     np.testing.assert_allclose(out[live], kern[live], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("L", [1, 16, 17])
+@pytest.mark.parametrize("Lk", [7, 65])
+def test_streamed_plain_stats_match_jax_kernel(L, Lk):
+    """Plain K1 with its statistics, the reference the CUDA kernel is held to,
+    against the interpreted Pallas kernel at the CUDA kernel's edges (one
+    row, one and a bit of its 16-row warp tiles; keys short of an 8-key tile
+    and one past a 64-key tile): out, and m + log(l) against the kernel's
+    lse, on rows with a real key, atol/rtol 2e-4 (f32); a fully masked row
+    has (m, l) = (-1e9, Lk) exactly."""
+    q, k, v, rel, mask = _attn_inputs(2, 2, L, Lk, 8)
+    out, stats = k1.streamed_attention_fwd_reference(*_torch(q, k, v, rel, mask))
+    kern, lse = _streamed_fwd_impl(*map(jnp.asarray, (q, k, v, rel, mask)), 128, 128, True,
+                                   with_stats=True)
+    live = mask.any(axis=1)
+    np.testing.assert_allclose(out.numpy()[live], np.asarray(kern)[live], rtol=2e-4, atol=2e-4)
+    m, l = stats[..., 0].numpy(), stats[..., 1].numpy()
+    np.testing.assert_allclose((m + np.log(l))[live], np.asarray(lse)[live, :, :L, 0],
+                               rtol=2e-4, atol=2e-4)
+    assert (m[~live] == -1e9).all() and (l[~live] == Lk).all()
+
+
+@pytest.mark.parametrize("L", [1, 16, 17])
+@pytest.mark.parametrize("Lk", [7, 65])
+def test_streamed_plain_dkdv_matches_jax_kernel(L, Lk):
+    """Plain K2a on the plain forward's statistics against dK and dV of
+    jax.vjp through the interpreted Pallas kernel at the same edges, atol/rtol
+    2e-4 (f32); no fully masked row (the JAX kernel's lse is wrong there)."""
+    q, k, v, rel, mask = _attn_inputs(2, 2, L, Lk, 8, padding_row=False)
+    g = np.random.default_rng(4).normal(size=q.shape).astype(np.float32)
+    tq, tk, tv, trel, tmask, tg = _torch(q, k, v, rel, mask, g)
+    out, stats = k1.streamed_attention_fwd_reference(tq, tk, tv, trel, tmask)
+    dk, dv = k1.streamed_attention_bwd_dkdv(tq, tk, tv, trel, tmask, stats,
+                                            (tg * out).sum(-1), tg)
+    _, vjp = jax.vjp(lambda *a: jax_streamed(*a, jnp.asarray(mask), 128, 128, True),
+                     *map(jnp.asarray, (q, k, v, rel)))
+    _, jdk, jdv, _ = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(dk.numpy(), np.asarray(jdk), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(dv.numpy(), np.asarray(jdv), rtol=2e-4, atol=2e-4)
 
 
 def _port_grads(q, k, v, rel, mask, g, fn=None):
