@@ -6,7 +6,7 @@
 1. Prints the card (nvidia-smi name and power limit, torch's device name).
 2. Builds the CUDA kernels from ``lako_tpu_torch/csrc`` with nvcc and, beside
    the build, prints the registers and spill bytes ptxas reports for each
-   kernel of ``PTXAS_SOURCES`` (K1, K4 and the streamed backward).
+   kernel of ``PTXAS_SOURCES`` (K1, K4, the streamed backward and K3).
 3. Checks each kernel against its plain PyTorch version on the card, at the
    main path's shapes and in its working types, and times the kernel, the
    plain version and, where one exists, the one PyTorch call that computes
@@ -16,10 +16,14 @@
    bound: the larger of the bytes moved over 3.35 TB/s and the operations
    over the type's peak (H100 SXM data sheet).
    K1 streamed attention and its backward K2a/K2b/K2c (directly and through
-   the autograd Function; drel bitwise equal in a second launch); K3 int8
-   decode cross-attention; K4 whole-block attention with a dense bias (full
-   and broadcast, fully masked rows, 512 keys); achieved GB/s beside K1,
-   K2a, K2c and K4; K1 and K2a timed again at L = Lk = 512 against
+   the autograd Function; dq and drel bitwise equal in a second launch); K3
+   int8 decode cross-attention at the served shape, at B=128 and at 25,000
+   keys (bitwise equal in a second launch, scaled_dot_product_attention on
+   bf16 K/V of the same shape printed as the native-KV read); K4
+   whole-block attention with a dense bias (full and broadcast, fully masked
+   rows, 512 keys, and 1024 keys through its two-pass tier against
+   scaled_dot_product_attention); achieved GB/s beside K1, K2a, K2b, K2c, K3
+   and K4; K1 and K2a timed again at L = Lk = 512 against
    scaled_dot_product_attention (the shape where the JAX default
    flash_min_length=512 sends the encoder to K1); K5
    the one-pass 8-bit Adam update (codes, scales and u bitwise equal to the
@@ -111,7 +115,8 @@ SOUNDS = ["meow", "woof", "moo", "quack", "croak", "buzz", "hoot", "howl", "neig
 
 
 # the sources whose kernels' registers and spills the run reports (ptxas -v)
-PTXAS_SOURCES = ("flash_streamed_fwd.cu", "fused_attention.cu", "flash_streamed_bwd.cu")
+PTXAS_SOURCES = ("flash_streamed_fwd.cu", "fused_attention.cu", "flash_streamed_bwd.cu",
+                 "decode_cross_attn.cu")
 
 
 def log(*args) -> None:
@@ -382,12 +387,12 @@ def check_streamed_bwd(dev):
         torch.cuda.synchronize()
         want = k1.streamed_attention_bwd_reference(q, k, v, rel, mask, out, stats, dout)
         errs = compare_bwd(f"{label}, direct", got, want, dtype)
-        again = k1.streamed_attention_bwd_drel(*args)
+        again = (k1.streamed_attention_bwd_dq(*args), k1.streamed_attention_bwd_drel(*args))
         torch.cuda.synchronize()
-        same = bool(torch.equal(got[3], again))
-        log(f"    {label} drel bitwise equal in a second launch: {same}")
-        if not same:
-            raise AssertionError(f"K2c is not repeatable at {label}")
+        same = [bool(torch.equal(a, b)) for a, b in zip((got[0], got[3]), again)]
+        log(f"    {label} dq and drel bitwise equal in a second launch: {same}")
+        if not all(same):
+            raise AssertionError(f"K2b or K2c is not repeatable at {label}")
         leaves = [t.clone().requires_grad_() for t in (q, k, v, rel)]
         got = torch.autograd.grad(k1.streamed_attention(*leaves, mask), leaves, dout)
         torch.cuda.synchronize()
@@ -410,7 +415,8 @@ def check_streamed_bwd(dev):
         times[name] = (kern, plain)
         log(f"  time of {name} at (16,16,130,64) bf16: kernel {kern:.4f} ms, its plain "
             f"version {plain:.4f} ms (device time per call, CUDA graph of 20 calls)")
-    for name, written in (("dkdv", nbytes(args[1], args[2])), ("drel", nbytes(args[3]))):
+    for name, written in (("dkdv", nbytes(args[1], args[2])), ("dq", nbytes(args[0])),
+                          ("drel", nbytes(args[3]))):
         moved = nbytes(*args) + written
         log(f"  {name}: {moved / times[name][0] / 1e6:.0f} GB/s achieved ({moved / 1e6:.1f} MB)")
 
@@ -464,34 +470,60 @@ def check_streamed_bwd(dev):
 
 
 def check_decode_cross(dev):
+    """K3 at the served shape (8,16,64,260), at B=128 and at a long K past the
+    parent's ~12,160-key limit: against its plain version, bitwise the same in
+    a second launch, timed beside its bound and, at each shape, beside
+    scaled_dot_product_attention on bf16 K/V of the same shape (the read of a
+    native-KV decode step, printed as a reference; K3's library row stays
+    none). Returns the summary entry of the served shape."""
     from lako_tpu_torch.models.t5.engine import _quantize_kv
     from lako_tpu_torch.ops import decode_cross_attn as k3
 
     log("K3 fused_decode_cross_attention (csrc/decode_cross_attn.cu) vs plain:")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     timed = {}
-    for B in (8, 128):
-        h, d, K = 16, 64, 260
+    h, d = 16, 64
+    for B, K in ((8, 260), (128, 260), (2, 25_000)):
         q = torch.randn(B, h, d, generator=gen, device=dev).to(torch.bfloat16)
-        ck = _quantize_kv(torch.randn(B, h, d, K, generator=gen, device=dev))
-        cv = _quantize_kv(torch.randn(B, h, d, K, generator=gen, device=dev))
+        kf = torch.randn(B, h, d, K, generator=gen, device=dev)
+        vf = torch.randn(B, h, d, K, generator=gen, device=dev)
+        ck, cv = _quantize_kv(kf), _quantize_kv(vf)
         mask = torch.rand(B, K, generator=gen, device=dev) < 0.7
         mask[:, 0] = True
         bias = torch.where(mask, 0.0, -1e9)[:, None, :].float().contiguous()
         args = (q, ck.values, ck.scale, cv.values, cv.scale, bias)
         out = k3.fused_decode_cross_attention(*args)
+        again = k3.fused_decode_cross_attention(*args)
         ref = k3.reference(*args)
         torch.cuda.synchronize()
-        label = f"({B},16,64,260) q bf16, int8 K/V"
+        label = f"({B},16,64,{K}) q bf16, int8 K/V"
         err = compare(label, out, ref, K3_TOL)
         torch.testing.assert_close(out, ref, rtol=K3_TOL, atol=K3_TOL)
+        same = bool(torch.equal(out, again))
+        log(f"  {label}: bitwise equal in a second launch: {same}")
+        if not same:
+            raise AssertionError(f"K3 is not repeatable at {label}")
+        # the native-KV decode's read: bf16 K/V (B,h,K,d), one query row
+        q4 = q[:, :, None, :]
+        k16, v16 = (t.transpose(2, 3).to(torch.bfloat16).contiguous() for t in (kf, vf))
+        mask16 = bias[:, :, None, :].to(torch.bfloat16)
+        del kf, vf
         plain = device_ms(lambda: k3.reference(*args))
         kern = device_ms(lambda: k3.fused_decode_cross_attention(*args))
+        native = device_ms(lambda: sdpa(q4, k16, v16, mask16))
+        kern = (kern + device_ms(lambda: k3.fused_decode_cross_attention(*args))) / 2
         plain = (plain + device_ms(lambda: k3.reference(*args))) / 2
-        log(f"  time at {label}: kernel {kern:.4f} ms, plain {plain:.4f} ms "
-            f"(device time per call, CUDA graph of 20 calls)")
-        timed[B] = (err, kern, plain, nbytes(*args, out), 4 * B * h * d * K)
-    err, kern, plain, n_bytes, ops = timed[8]
+        n_bytes, ops = nbytes(*args, out), 4 * B * h * d * K
+        bound_ms, bound_by = bound(n_bytes, ops, "bf16")
+        log(f"  time at {label}: kernel {kern:.4f} ms ({n_bytes / kern / 1e6:.0f} GB/s achieved, "
+            f"{n_bytes / 1e6:.1f} MB), {kern / bound_ms:.1f}x its bound {bound_ms:.4f} ms by "
+            f"{bound_by}; plain {plain:.4f} ms; for reference, not K3's library call: "
+            f"scaled_dot_product_attention on bf16 K/V of the same shape {native:.4f} ms "
+            f"({nbytes(q4, k16, v16, mask16) / 1e6:.1f} MB) (device time per call, CUDA graph "
+            f"of 20 calls)")
+        timed[B, K] = (err, kern, plain, n_bytes, ops)
+        del args, ck, cv, k16, v16, out, again, ref
+    err, kern, plain, n_bytes, ops = timed[8, 260]
     return entry("fused_decode_cross_attention", "lako_tpu_torch/csrc/decode_cross_attn.cu",
                  "lako_tpu/ops/decode_cross_attn.py:82", err, kern, plain, n_bytes, ops,
                  "bf16", None)
@@ -537,9 +569,37 @@ def check_fused(dev):
         f"scaled_dot_product_attention with the bias in bf16 {library:.4f} ms (device time "
         f"per call, CUDA graph of 20 calls)")
     B, H, L, D = q.shape
-    return entry("fused_attention", "lako_tpu_torch/csrc/fused_attention.cu",
-                 "lako_tpu/ops/flash_attention.py:81", err, kern, plain,
-                 n_bytes, 4 * B * H * L * k.shape[2] * D, "bf16", library)
+    result = entry("fused_attention", "lako_tpu_torch/csrc/fused_attention.cu",
+                   "lako_tpu/ops/flash_attention.py:81", err, kern, plain,
+                   n_bytes, 4 * B * H * L * k.shape[2] * D, "bf16", library)
+    check_fused_long(dev, gen)
+    return result
+
+
+def check_fused_long(dev, gen):
+    """K4's two-pass tier at (16,16,1024,64) bf16 with a dense f32 bias:
+    against its plain version, timed beside scaled_dot_product_attention and
+    its bound. Logged only."""
+    from lako_tpu_torch.ops import flash_attention as k4
+
+    label = "(16,16,1024,64) bf16, f32 bias, 4 fully masked rows (the two-pass tier)"
+    q, k, v, rel, mask = attn_inputs(gen, dev, 16, 16, 1024, 1024, 64, torch.bfloat16, 4)
+    bias = dense_bias(rel, mask)
+    compare(f"K4 at {label}", k4.fused_attention(q, k, v, bias),
+            k4.fused_attention_reference(q, k, v, bias), *K1_TOL["bf16"])
+    bias16 = bias.to(q.dtype)
+    plain = device_ms(lambda: k4.fused_attention_reference(q, k, v, bias))
+    kern = device_ms(lambda: k4.fused_attention(q, k, v, bias))
+    library = device_ms(lambda: sdpa(q, k, v, bias16))
+    kern = (kern + device_ms(lambda: k4.fused_attention(q, k, v, bias))) / 2
+    plain = (plain + device_ms(lambda: k4.fused_attention_reference(q, k, v, bias))) / 2
+    B, H, L, D = q.shape
+    n_bytes, ops = nbytes(q, k, v, bias, q), 4 * B * H * L * k.shape[2] * D
+    bound_ms, bound_by = bound(n_bytes, ops, "bf16")
+    log(f"  K4 at {label}: kernel {kern:.4f} ms ({n_bytes / kern / 1e6:.0f} GB/s achieved, "
+        f"{n_bytes / 1e6:.1f} MB), {kern / bound_ms:.1f}x its bound {bound_ms:.4f} ms by "
+        f"{bound_by}; plain {plain:.4f} ms; scaled_dot_product_attention with the bias in bf16 "
+        f"{library:.4f} ms (device time per call, CUDA graph of 20 calls)")
 
 
 def adam8_state(gen, dev, n):

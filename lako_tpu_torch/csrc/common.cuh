@@ -32,6 +32,25 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32<T>(from_f32<T>(x));
 }
 
+// Devices a process may use, for the per-device flags of configure_smem.
+constexpr int kMaxDevices = 64;
+
+// Raises a kernel's dynamic shared memory limit to `bytes` on the current
+// device, once per device: CUDA keeps function attributes per device context,
+// so a flag per process would leave a second card unconfigured. Once set, a
+// later launch does no host call, so it can be captured in a CUDA graph.
+template <typename Kernel>
+cudaError_t configure_smem(Kernel kernel, int bytes, bool (&configured)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (configured[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) configured[dev] = true;
+  return err;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;

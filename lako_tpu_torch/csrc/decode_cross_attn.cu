@@ -11,111 +11,319 @@
 //   out[d]    = v_scale[d] * sum_k p[k] * V_i8[d,k]              (scale folded out)
 //
 // What bounds it on the H100: memory traffic. Each query row is one vector
-// (M=1 per head), so the kernel does 4 FLOPs per int8 byte it reads (one
-// byte per K and V element) and can never feed the tensor cores. The design
-// keeps those bytes int8 all the way into registers (dequantization is one
-// multiply on q and one on the output, never a bf16 copy of K/V in device
-// memory), and reads them coalesced: neighbouring threads take neighbouring
-// keys, the minor axis. One block per (b, h) gives B*h blocks (128 at B=8),
-// less than one wave on 132 SMs at small batch; splitting K across blocks
-// (flash-decoding) is the next step.
+// (M=1 per head), so the kernel does 4 operations per int8 byte it reads and
+// can never feed the tensor cores; at (8,16,64,260) it moves 4.3 MB, 1.3 us
+// at 3.35 TB/s. So the design is about bytes in flight and warps to hide
+// their latency:
+// - K/V stay int8 until they are in registers (dequantization is one
+//   multiply on q and one on the output, never a bf16 copy of K/V in device
+//   memory), and nothing is padded or re-laid in device memory.
+// - Each block walks its keys in tiles of 128: the (d x 128) int8 tiles of K
+//   and V come into shared memory through a 2-stage cp.async ring, 4 bytes a
+//   copy (a row of K = 260 keys is 4-byte aligned, not 16; byte loads where
+//   K % 4 != 0), the next tile's copies in flight while this one computes.
+// - Thread t sums the logit of key t over d in order with FMAs,
+//   (q[d] k_scale[d]) K_i8[d,k], the scale folded into q as the JAX kernel
+//   folds it: at large logits an f32 ulp of a logit moves the output by
+//   ~1e-5, and this order keeps it within 1e-5 of the plain version. Its
+//   bytes are read 16 rows ahead of the FMAs, and its bias a tile ahead.
+// - Lane l owns keys 4 l .. 4 l + 3 of every tile and keeps an online
+//   softmax over them (its max and sum, rescaled as the max grows); warp w
+//   owns d rows [16 w, 16 w + 16) of the output, a per-key FMA over the V
+//   words, 16 partials a thread. No row of K logits stays on chip, so K is
+//   unbounded; the lanes' partials are summed in lako::warp_sum's butterfly
+//   order once at the end.
+// - Enough blocks at serving batch sizes: the keys of each (b, h) are split
+//   over up to 8 blocks (flash-decoding), chosen from B*h against the SMs (no
+//   split at B=128, 2048 (b, h) pairs; 3 at B=8, 128 pairs). The blocks of a
+//   (b, h) form one thread-block cluster; each writes its (m, l, o[d]) into
+//   block 0's shared memory (distributed shared memory, one cluster barrier
+//   after the writes, the first phase arrived at while the copies fly), and
+//   block 0 merges them in a fixed order, in the same launch, so the result
+//   is the same in every run.
+
+#include <algorithm>
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
+constexpr int KEYS = 4;              // consecutive keys per lane
+constexpr int TILE = 32 * KEYS;      // keys per tile
+constexpr int ROWS = 16;             // output rows per warp
+constexpr int MIN_WARPS = TILE / 32;  // the logits take one thread per key of a tile
+constexpr int MAX_HEAD_DIM = 256;
+constexpr int MAX_SPLITS = 8;        // blocks per (b, h): a portable cluster size
+constexpr int MIN_SPLIT_KEYS = 64;
+constexpr int STAGES = 2;
 
-__device__ float block_reduce(float x, float* scratch, bool is_max) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  x = is_max ? lako::warp_max(x) : lako::warp_sum(x);
-  __syncthreads();  // scratch may still be read from a previous reduction
-  if (lane == 0) scratch[warp] = x;
-  __syncthreads();
-  float r = scratch[0];
-  for (int w = 1; w < WARPS; ++w) r = is_max ? fmaxf(r, scratch[w]) : r + scratch[w];
-  return r;
+// Signed byte e of w as a float, exactly, without the quarter-rate integer
+// conversion: wx = w ^ 0x80808080 holds each byte + 128, and the float whose
+// bits are 0x4B0000xx is 2^23 + xx.
+__device__ __forceinline__ float byte_at(uint32_t wx, int e) {
+  return __int_as_float(__byte_perm(wx, 0x4B000000u, 0x7540 + e)) - 8388736.f;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// v[c] summed over the warp's lanes, in the butterfly order of
+// lako::warp_sum (so bitwise its sums): each step keeps half of the channels
+// and takes the partner's share of them, until one is left; on return lane
+// t holds the sum of channel t / (32 / N) in v[0].
+template <int N>
+__device__ __forceinline__ void warp_sum_transposed(float (&v)[N]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int off = 16, n = N; off >= 1; off >>= 1) {
+    if (n > 1) {
+      const bool upper = (lane & off) != 0;
+#pragma unroll
+      for (int i = 0; i < n / 2; ++i) {
+        const float keep = upper ? v[i + n / 2] : v[i];
+        const float give = upper ? v[i] : v[i + n / 2];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, give, off);
+      }
+      n >>= 1;
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+    }
+  }
+}
+
+// A block's shared memory: the ring of STAGES (K, V) int8 tile pairs
+// [d][TILE], the tile's logits [TILE], q * k_scale [d] and, in block 0,
+// every block's partial (m, l, o[d]) [splits][d + 2].
+inline size_t smem_bytes(int d, int splits) {
+  return (size_t)STAGES * 2 * d * TILE +
+         sizeof(float) * ((size_t)TILE + d + (size_t)splits * (d + 2));
+}
+
+// Grid (splits, h, B), one cluster of `splits` blocks per (b, h); block s
+// takes keys [s * per_split, min(K, (s + 1) * per_split)), never empty.
+template <typename T, bool kWord>
+__global__ void __launch_bounds__(32 * MAX_HEAD_DIM / ROWS)
 decode_cross_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_i8,
                     const float* __restrict__ k_scale, const int8_t* __restrict__ v_i8,
                     const float* __restrict__ v_scale, const float* __restrict__ bias,
-                    float* __restrict__ out, int h, int d, int K) {
-  extern __shared__ float smem[];
-  float* qs = smem;      // [d] q * k_scale
-  float* p = smem + d;   // [K] logits, then probabilities
-  __shared__ float scratch[WARPS];
+                    float* __restrict__ out, int h, int d, int K, int per_split) {
+  extern __shared__ float4 smem4[];
+  const int S = gridDim.x, R = d + 2;
+  int8_t* ring = reinterpret_cast<int8_t*>(smem4);  // stage i: K then V, [d][TILE] each
+  float* ls = reinterpret_cast<float*>(ring + (size_t)STAGES * 2 * d * TILE);
+  float* qs = ls + TILE;
+  float* all = qs + d;       // [S][R]: block j's m, l, o[d] (block 0)
 
-  const int b = blockIdx.y;
-  const size_t bh = (size_t)b * h + blockIdx.x;
-  const int tid = threadIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = blockIdx.x, b = blockIdx.z;
+  const size_t bh = (size_t)b * h + blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k_begin = split * per_split, k_end = min(K, k_begin + per_split);
+  const int n_tiles = (k_end - k_begin + TILE - 1) / TILE;
   const int8_t* kb = k_i8 + bh * d * K;
   const int8_t* vb = v_i8 + bh * d * K;
   const float* biasb = bias + (size_t)b * K;
 
-  for (int c = tid; c < d; c += THREADS)
+  // tile i's K and V rows into its stage; bytes at or past k_end are 0
+  auto issue = [&](int i) {
+    int8_t* st = ring + (size_t)(i % STAGES) * 2 * d * TILE;
+    const int k0 = k_begin + i * TILE;
+    if constexpr (kWord) {
+      for (int x = threadIdx.x; x < 2 * d * (TILE / 4); x += blockDim.x) {
+        const int row = x / (TILE / 4), wd = x - row * (TILE / 4);  // row: K's then V's
+        const int key = k0 + 4 * wd;
+        const int8_t* src = (row < d ? kb : vb) + (size_t)(row < d ? row : row - d) * K + key;
+        lako::cp_async_small<4>(st + row * TILE + 4 * wd, key < k_end ? src : kb, key < k_end);
+      }
+    } else {
+      for (int x = threadIdx.x; x < 2 * d * TILE; x += blockDim.x) {
+        const int row = x / TILE, j = x - row * TILE, key = k0 + j;
+        const int8_t* src = (row < d ? kb : vb) + (size_t)(row < d ? row : row - d) * K + key;
+        st[row * TILE + j] = key < k_end ? *src : 0;
+      }
+    }
+  };
+  issue(0);
+  lako::cp_async_commit();
+  // the cluster's first barrier phase: every block has started by the time
+  // this block writes into block 0's shared memory, at the end
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  for (int c = threadIdx.x; c < d; c += blockDim.x)
     qs[c] = lako::to_f32(q[bh * d + c]) * k_scale[bh * d + c];
-  __syncthreads();
+  // loaded ahead of use, off the critical path: the bias of thread t's key a
+  // tile ahead, and (block 0, thread c < d <= blockDim) v_scale[c]
+  auto load_bias = [&](int i) {
+    const int key = k_begin + i * TILE + threadIdx.x;
+    return threadIdx.x < TILE && key < k_end ? biasb[key] : 0.f;
+  };
+  float bias_cur = load_bias(0);
+  const float vsc = split == 0 && (int)threadIdx.x < d ? v_scale[bh * d + threadIdx.x] : 0.f;
 
-  float local_max = -1e30f;
-  for (int key = tid; key < K; key += THREADS) {
-    float acc = 0.f;
-    for (int c = 0; c < d; ++c) acc = fmaf(qs[c], (float)kb[(size_t)c * K + key], acc);
-    acc += biasb[key];
-    p[key] = acc;
-    local_max = fmaxf(local_max, acc);
+  float m = -INFINITY, l = 0.f, o[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) o[r] = 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    const float bias_next = i + 1 < n_tiles ? load_bias(i + 1) : 0.f;
+    if (i + 1 < n_tiles) issue(i + 1);
+    lako::cp_async_commit();
+    lako::cp_async_wait<1>();
+    __syncthreads();  // tile i (and q * k_scale) has landed
+    const int8_t* ks = ring + (size_t)(i % STAGES) * 2 * d * TILE;
+    const int8_t* vs = ks + d * TILE;
+    const int k0 = k_begin + i * TILE;
+
+    // thread t: the logit of key k0 + t, summed over d in order (its bytes
+    // read 16 rows at a time, ahead of the FMAs); -inf past the split
+    if (threadIdx.x < TILE) {
+      float acc = -INFINITY;
+      if (k0 + (int)threadIdx.x < k_end) {
+        const int8_t* col = ks + threadIdx.x;
+        acc = 0.f;
+        int c0 = 0;
+        for (; c0 + 16 <= d; c0 += 16) {
+          float kv[16];
+#pragma unroll
+          for (int j = 0; j < 16; ++j) kv[j] = (float)col[(c0 + j) * TILE];
+#pragma unroll
+          for (int j = 0; j < 16; ++j) acc = fmaf(qs[c0 + j], kv[j], acc);
+        }
+        for (; c0 < d; ++c0) acc = fmaf(qs[c0], (float)col[c0 * TILE], acc);
+        acc += bias_cur;
+      }
+      ls[threadIdx.x] = acc;
+    }
+    __syncthreads();
+
+    // the lane's keys 4 l .. 4 l + 3: its online softmax, the same in every warp
+    if (k0 + KEYS * lane < k_end) {
+      const float4 s4 = *reinterpret_cast<const float4*>(ls + KEYS * lane);
+      const float s[KEYS] = {s4.x, s4.y, s4.z, s4.w};
+      float m_new = m;
+#pragma unroll
+      for (int e = 0; e < KEYS; ++e) m_new = fmaxf(m_new, s[e]);  // finite: key 4 l is real
+      const float alpha = expf(m - m_new);  // 0 on the lane's first tile
+      float p[KEYS];
+#pragma unroll
+      for (int e = 0; e < KEYS; ++e) p[e] = expf(s[e] - m_new);
+      l = l * alpha + ((p[0] + p[1]) + (p[2] + p[3]));
+      m = m_new;
+      // this warp's rows of the output
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int c = warp * ROWS + r;
+        if (c < d) {
+          const uint32_t w =
+              *reinterpret_cast<const uint32_t*>(vs + c * TILE + KEYS * lane) ^ 0x80808080u;
+          float acc = o[r] * alpha;
+#pragma unroll
+          for (int e = 0; e < KEYS; ++e) acc = fmaf(p[e], byte_at(w, e), acc);
+          o[r] = acc;
+        }
+      }
+    }
+    __syncthreads();  // this stage and the logits are rewritten
+    bias_cur = bias_next;
   }
-  const float m = block_reduce(local_max, scratch, true);
 
-  float local_sum = 0.f;
-  for (int key = tid; key < K; key += THREADS) {
-    const float e = expf(p[key] - m);
-    p[key] = e;
-    local_sum += e;
+  // this block's partial: the lanes' (m, l, o) merged against the block's max
+  // (every warp holds the same lanes' m and l)
+  const float mw = lako::warp_max(m);
+  const float f = mw == -INFINITY ? 0.f : expf(m - mw);  // a lane without keys: 0
+  const float lw = lako::warp_sum(l * f);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) o[r] *= f;
+  warp_sum_transposed<ROWS>(o);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  float* part = cluster.map_shared_rank(all, 0) + split * R;  // in block 0
+  if (lane % (32 / ROWS) == 0 && warp * ROWS + lane / (32 / ROWS) < d)
+    part[2 + warp * ROWS + lane / (32 / ROWS)] = o[0];
+  if (threadIdx.x == 0) {
+    part[0] = mw;
+    part[1] = lw;
   }
-  const float sum = block_reduce(local_sum, scratch, false);
-  for (int key = tid; key < K; key += THREADS) p[key] = p[key] / sum;
-  __syncthreads();
+  cluster.sync();  // every block's partial has landed in block 0
 
-  const int lane = tid % 32, warp = tid / 32;
-  for (int c = warp; c < d; c += WARPS) {
-    float acc = 0.f;
-    for (int key = lane; key < K; key += 32)
-      acc = fmaf(p[key], (float)vb[(size_t)c * K + key], acc);
-    acc = lako::warp_sum(acc);
-    if (lane == 0) out[bh * d + c] = acc * v_scale[bh * d + c];
+  if (split == 0 && (int)threadIdx.x < d) {  // thread c: channel c
+    const int c = threadIdx.x;
+    float mx = -INFINITY;
+    for (int j = 0; j < S; ++j) mx = fmaxf(mx, all[j * R]);
+    float num = 0.f, den = 0.f;
+    for (int j = 0; j < S; ++j) {
+      const float* pj = all + j * R;
+      const float wgt = pj[0] == -INFINITY ? 0.f : expf(pj[0] - mx);
+      num += wgt * pj[2 + c];
+      den += wgt * pj[1];
+    }
+    out[bh * d + c] = num / den * vsc;
   }
 }
 
+template <typename T, bool kWord>
+int launch_split(const void* q, const void* k_i8, const void* k_scale, const void* v_i8,
+                 const void* v_scale, const void* bias, void* out, int B, int h, int d, int K,
+                 cudaStream_t stream) {
+  static bool configured[lako::kMaxDevices] = {};
+  auto kernel = decode_cross_kernel<T, kWord>;
+  cudaError_t err = lako::configure_smem(
+      kernel, (int)smem_bytes(MAX_HEAD_DIM, MAX_SPLITS), configured);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // about 2 blocks an SM, at least MIN_SPLIT_KEYS keys a block
+  const long long pairs = (long long)B * h;
+  int splits = (int)std::min<long long>(MAX_SPLITS, (2LL * sms + pairs - 1) / pairs);
+  splits = std::max(1, std::min(splits, (K + MIN_SPLIT_KEYS - 1) / MIN_SPLIT_KEYS));
+  const int per_split = ((K + splits - 1) / splits + KEYS - 1) / KEYS * KEYS;
+  splits = (K + per_split - 1) / per_split;  // every split holds a key
+  const int warps = std::max(MIN_WARPS, (d + ROWS - 1) / ROWS);
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, h, B);
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes = smem_bytes(d, splits);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q),
+                           static_cast<const int8_t*>(k_i8), static_cast<const float*>(k_scale),
+                           static_cast<const int8_t*>(v_i8), static_cast<const float*>(v_scale),
+                           static_cast<const float*>(bias), static_cast<float*>(out), h, d, K,
+                           per_split);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Word copies where every row start is 4-byte aligned.
 template <typename T>
 int launch(const void* q, const void* k_i8, const void* k_scale, const void* v_i8,
-           const void* v_scale, const void* bias, void* out, int B, int h, int d,
-           int K, cudaStream_t stream) {
-  // d + K floats stay within the default 48 KB (checked by the Python wrapper)
-  const size_t smem = sizeof(float) * (size_t)(d + K);
-  auto kernel = decode_cross_kernel<T>;
-  kernel<<<dim3(h, B), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const int8_t*>(k_i8),
-      static_cast<const float*>(k_scale), static_cast<const int8_t*>(v_i8),
-      static_cast<const float*>(v_scale), static_cast<const float*>(bias),
-      static_cast<float*>(out), h, d, K);
-  return (int)cudaGetLastError();
+           const void* v_scale, const void* bias, void* out, int B, int h, int d, int K,
+           cudaStream_t s) {
+  const bool word = K % 4 == 0 &&
+                    (reinterpret_cast<uintptr_t>(k_i8) | reinterpret_cast<uintptr_t>(v_i8)) % 4 == 0;
+  if (word) return launch_split<T, true>(q, k_i8, k_scale, v_i8, v_scale, bias, out, B, h, d, K, s);
+  return launch_split<T, false>(q, k_i8, k_scale, v_i8, v_scale, bias, out, B, h, d, K, s);
 }
 
 }  // namespace
 
 // q: (B,h,d) in `dtype`; k_i8, v_i8: (B,h,d,K) int8; k_scale, v_scale: (B,h,d)
-// f32; bias: (B,1,K) f32; out: (B,h,d) f32. All contiguous. Returns a
-// cudaError_t code (0 = launched).
+// f32; bias: (B,1,K) f32; out: (B,h,d) f32. All contiguous; d <= 256, B and h
+// <= 65535 (checked by the Python wrapper). Returns a cudaError_t code (0 =
+// launched).
 extern "C" int lako_decode_cross_attn(const void* q, const void* k_i8,
                                       const void* k_scale, const void* v_i8,
                                       const void* v_scale, const void* bias,
                                       void* out, int B, int h, int d, int K,
                                       int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d < 1 || d > MAX_HEAD_DIM || K < 1) return (int)cudaErrorInvalidValue;
   if (dtype == lako::kFloat32)
     return launch<float>(q, k_i8, k_scale, v_i8, v_scale, bias, out, B, h, d, K, s);
   if (dtype == lako::kBFloat16)

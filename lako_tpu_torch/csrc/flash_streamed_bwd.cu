@@ -14,7 +14,7 @@
 //   K2a: dV[k] = sum_q P[q,k] dO[q], dK[k] = sum_q dS[q,k] q[q]
 //        one block per (b, h, key slab), walking the q rows;
 //   K2b: dQ[q] = sum_k dS[q,k] k[k]
-//        one block per (b, h, q tile), walking the k tiles;
+//        one block per (b, h, slab of query rows), walking the key tiles;
 //   K2c: drel[h,q,k] = sum_b dS[b,h,q,k]
 //        walking the batch inside each block (bf16: one block per (24-key
 //        slab, 48-row slab, h); f32: per (h, q tile, k tile)). Each element
@@ -36,11 +36,24 @@
 // move ~20 MB each (q, k, v, dO in bf16, the statistics, rel), a few us at
 // 3.35 TB/s; so on the CUDA cores (67 TFLOP/s f32 on NVIDIA's H100 SXM data
 // sheet) the products bound them, on the tensor cores the bytes and latency.
-// - K2b, and every kernel for f32 inputs, run every product on CUDA-core
-//   FMAs in f32: operands staged in shared memory as f32, transposed with a
-//   padded row stride so that the tile products read float4s, 64 x 64 tiles
-//   (the ragged edge at L=130 costs a third, nearly empty tile in each
-//   direction).
+// - Every kernel for f32 inputs runs every product on CUDA-core FMAs in f32,
+//   kept for exact checks against the plain versions: operands staged in
+//   shared memory as f32, transposed with a padded row stride so that the
+//   tile products read float4s, 64 x 64 tiles (the ragged edge at L=130
+//   costs a third, nearly empty tile in each direction).
+// - K2b for bf16 is the forward K1's walk with one more product, all three on
+//   the tensor cores with the query rows on the mma M axis: each warp owns 16
+//   query rows, whose q and dO fragments are loaded once by ldmatrix and kept
+//   in registers; K and V come in 32-key tiles through a 3-stage cp.async
+//   ring two tiles ahead; S = Q.K^T and dP = dO.V^T are mma.sync m16n8k16
+//   against K's and V's rows, P and dS are formed in the C fragments
+//   (warp_p_ds, as K2c), and dS, rounded to bf16 straight into the A operand,
+//   feeds dQ += dS.K with K's B fragments through ldmatrix.trans. dQ stays in
+//   f32 registers for the whole walk and each element is written once by one
+//   warp (no atomics). The key mask is bits in shared memory, and each thread
+//   loads the next tile's bias pairs into registers once this tile's dS is
+//   formed. One block per (b, h, slab of up to 6 warps at D = 64, 4 at 128;
+//   at L = 130 two blocks of 5); the edges cost 16 rows and 8 or 16 keys.
 // - K2a for bf16 runs all four products on the tensor cores with the keys on
 //   the mma M axis: each warp owns 16 keys, so S^T = K.Q^T and dP^T = V.dO^T
 //   are the same X.Y^T tile step as K2c's (attention_bwd_tile.cuh, K and V
@@ -721,15 +734,190 @@ bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// Set a kernel's dynamic shared memory once, so that later launches can be
-// captured in a CUDA graph.
-template <typename Kernel>
-cudaError_t configure(Kernel kernel, size_t smem, bool& configured) {
-  if (configured) return cudaSuccess;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) configured = true;
-  return err;
+// ---- K2b for bf16: tensor cores, the query rows on the M axis --------------
+
+constexpr int DQ_TK = 32;      // keys per step of the walk
+constexpr int DQ_STAGES = 3;   // (K, V) tile pairs in the shared-memory ring
+
+// warps (16 query rows each) per block, at most: two blocks an SM within the
+// registers
+template <int D>
+__host__ __device__ constexpr int dq_max_warps() { return D == 64 ? 6 : 4; }
+
+// a block's shared memory: Q's and dO's rows [warps*16][D+8], the ring of
+// (K, V) tile pairs [DQ_TK][D+8] each, and the key mask as bits
+template <int D>
+size_t dq_mma_smem_bytes(int warps, int Lk) {
+  return sizeof(bf16) * (size_t)(2 * warps * 16 + DQ_STAGES * 2 * DQ_TK) * (D + 8) +
+         sizeof(uint32_t) * (size_t)((Lk + 31) / 32);
+}
+
+// One block per (b*h, slab of W*16 query rows), W warps of 16 rows, the
+// forward K1's walk with one more product: S = Q.K^T and dP = dO.V^T from
+// Q's and dO's fragments (loaded once, kept in registers) and the tile's K
+// and V rows, P and dS in the C fragments (warp_p_ds, row terms along the C
+// rows as in K2c), dS rounded to bf16 into the A operand of dQ += dS.K, K's B
+// fragments through ldmatrix.trans. Copy group 0 holds Q's and dO's rows and
+// tile 0, group i tile i; tile i + 2 is issued while tile i computes. Each
+// thread loads the next tile's bias pairs into registers once this tile's dS
+// is formed. Warps wholly past L only copy.
+template <int D>
+__global__ void __launch_bounds__(32 * dq_max_warps<D>(), 2)
+bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const float* __restrict__ rel,
+                  const uint8_t* __restrict__ key_mask, const float2* __restrict__ stats,
+                  const float* __restrict__ dvec, const bf16* __restrict__ dout,
+                  bf16* __restrict__ dq, int H, int L, int Lk) {
+  constexpr int P = D + 8;              // row pitch of the bf16 tiles
+  constexpr int KT = DQ_TK / 8;         // 8-key column tiles of S
+  constexpr int NO = D / 8;             // 8-wide column tiles of dQ
+  constexpr int STAGE = 2 * DQ_TK * P;  // one (K, V) tile pair
+  const int W = blockDim.x / 32;
+  const int nk = (Lk + DQ_TK - 1) / DQ_TK;
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);
+  bf16* dos = qs + W * 16 * P;
+  bf16* ring = dos + W * 16 * P;
+  uint32_t* live_bits = reinterpret_cast<uint32_t*>(ring + DQ_STAGES * STAGE);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.y * W * 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const bf16* kg = k + (size_t)bh * Lk * D;
+  const bf16* vg = v + (size_t)bh * Lk * D;
+
+  // tile i (keys [DQ_TK i, DQ_TK i + DQ_TK)) into its stage, up to its 16-key edge
+  auto issue = [&](int i) {
+    bf16* st = ring + (i % DQ_STAGES) * STAGE;
+    const int k0 = i * DQ_TK, rows = min(DQ_TK, (Lk - k0 + 15) & ~15);
+    lako::cp_async_rows<D>(st, P, kg + (size_t)k0 * D, rows, Lk - k0);
+    lako::cp_async_rows<D>(st + DQ_TK * P, P, vg + (size_t)k0 * D, rows, Lk - k0);
+  };
+  lako::cp_async_rows<D>(qs, P, q + ((size_t)bh * L + q0) * D, W * 16, L - q0);
+  lako::cp_async_rows<D>(dos, P, dout + ((size_t)bh * L + q0) * D, W * 16, L - q0);
+#pragma unroll
+  for (int i = 0; i < DQ_STAGES - 1; ++i) {
+    if (i < nk) issue(i);
+    lako::cp_async_commit();
+  }
+  // the key mask as bits: word w holds keys [32 w, 32 w + 32), 0 past Lk
+  for (int w = warp; w < (Lk + 31) / 32; w += W) {
+    const int key = 32 * w + lane;
+    const unsigned bits = __ballot_sync(0xffffffffu, key < Lk && key_mask[(size_t)b * Lk + key]);
+    if (lane == 0) live_bits[w] = bits;
+  }
+
+  const int row0 = q0 + warp * 16 + lane / 4, row1 = row0 + 8;  // this thread's rows
+  const bool active = q0 + warp * 16 < L;
+  const bool vec = (Lk & 1) == 0 && reinterpret_cast<uintptr_t>(rel) % 8 == 0;
+  // bias at (row, key) and (row, key + 1); 0 past L or Lk
+  auto rel_pair = [&](int row, int key) {
+    if (row >= L || key >= Lk) return make_float2(0.f, 0.f);
+    const float* r = rel + ((size_t)h * L + row) * Lk + key;
+    if (vec) return *reinterpret_cast<const float2*>(r);
+    return make_float2(r[0], key + 1 < Lk ? r[1] : 0.f);
+  };
+  // tile i's bias at this thread's rows and keys DQ_TK i + 8 j + 2 t + {0, 1}
+  float rl[KT][4];
+  auto load_rel = [&](int i) {
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      const int key = i * DQ_TK + j * 8 + t * 2;
+      const float2 a = rel_pair(row0, key), c = rel_pair(row1, key);
+      rl[j][0] = a.x; rl[j][1] = a.y; rl[j][2] = c.x; rl[j][3] = c.y;
+    }
+  };
+  lako::RowTerms terms[2];
+  if (active) {
+    load_rel(0);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r == 0 ? row0 : row1;
+      const float2 ml = row < L ? stats[(size_t)bh * L + row] : make_float2(0.f, 1.f);
+      terms[r] = {ml.x, ml.y, __frcp_rn(ml.y), row < L ? dvec[(size_t)bh * L + row] : 0.f};
+    }
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  uint32_t qf[D / 16][4], df[D / 16][4];  // this warp's q and dO fragments, loaded once
+
+  for (int i = 0; i < nk; ++i) {
+    lako::cp_async_wait<DQ_STAGES - 2>();
+    __syncthreads();  // tile i has landed; tile i - 1's stage is no longer read
+    if (i + DQ_STAGES - 1 < nk) issue(i + DQ_STAGES - 1);
+    lako::cp_async_commit();
+    if (!active) continue;
+    if (i == 0) {
+#pragma unroll
+      for (int c0 = 0; c0 < D; c0 += 32) {
+        lako::load_a_x2(qf[c0 / 16], qf[c0 / 16 + 1], qs + warp * 16 * P, P, c0);
+        lako::load_a_x2(df[c0 / 16], df[c0 / 16 + 1], dos + warp * 16 * P, P, c0);
+      }
+    }
+    const bf16* ks = ring + (i % DQ_STAGES) * STAGE;
+    const bf16* vs = ks + DQ_TK * P;
+    const int n = min(DQ_TK, Lk - i * DQ_TK);  // real keys in this tile
+    const int n_tiles = (n + 7) / 8;           // 8-key tiles that hold one
+
+    // S = q k^T, dP = dO v^T: rows (row0, row1), keys DQ_TK i + 8 j + 2 t + {0, 1};
+    // sums over d in 16-deep steps from d = 0
+    float s[KT][4], dp[KT][4];
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int c0 = 0; c0 < D; c0 += 32)
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+        if (j < n_tiles) {
+          uint32_t bk[4], bv[4];
+          lako::load_b_rows(bk, ks, P, j * 8, c0);
+          lako::load_b_rows(bv, vs, P, j * 8, c0);
+          lako::mma_bf16(s[j], qf[c0 / 16], bk[0], bk[1]);
+          lako::mma_bf16(s[j], qf[c0 / 16 + 1], bk[2], bk[3]);
+          lako::mma_bf16(dp[j], df[c0 / 16], bv[0], bv[1]);
+          lako::mma_bf16(dp[j], df[c0 / 16 + 1], bv[2], bv[3]);
+        }
+
+    uint32_t in_keys = 0, live_keys = 0;
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = j * 8 + t * 2 + c;  // in the tile
+        const uint32_t word = live_bits[(i * DQ_TK + j * 8) / 32];
+        if (key < n) in_keys |= 1u << (2 * j + c);
+        if ((word >> ((i * DQ_TK + key) % 32)) & 1u) live_keys |= 1u << (2 * j + c);
+      }
+    lako::warp_p_ds<KT>(s, dp, rl, in_keys, live_keys, terms, row0 < L, row1 < L);
+    if (i + 1 < nk) load_rel(i + 1);  // in flight during dQ's products and the next S, dP
+
+    // dQ += dS.K, 16 keys a k-step
+#pragma unroll
+    for (int kk = 0; kk < DQ_TK / 16; ++kk)
+      if (16 * kk < n) {
+        uint32_t a[4];
+        lako::c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+        lako::mma_ay<D>(acc, a, ks + kk * 16 * P, P);
+      }
+  }
+  if (!active) return;
+
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const int col = j * 8 + t * 2;
+    if (row0 < L)
+      *reinterpret_cast<uint32_t*>(dq + ((size_t)bh * L + row0) * D + col) =
+          lako::pack_bf16(acc[j][0], acc[j][1]);
+    if (row1 < L)
+      *reinterpret_cast<uint32_t*>(dq + ((size_t)bh * L + row1) * D + col) =
+          lako::pack_bf16(acc[j][2], acc[j][3]);
+  }
 }
 
 // Picks K2a's bf16 block: up to DKDV_MAX_WARPS warps, spread evenly over the
@@ -741,8 +929,8 @@ int launch_dkdv_mma(const void* q, const void* k, const void* v, const void* rel
                     const void* key_mask, const void* stats, const void* dvec,
                     const void* dout, void* dk, void* dv, int B, int H, int L, int Lk,
                     cudaStream_t s) {
-  static bool configured = false;
-  cudaError_t err = configure(bwd_dkdv_mma_kernel<D>, SMEM_LIMIT, configured);
+  static bool configured[lako::kMaxDevices] = {};
+  cudaError_t err = lako::configure_smem(bwd_dkdv_mma_kernel<D>, SMEM_LIMIT, configured);
   if (err != cudaSuccess) return (int)err;
   const int key_tiles = (Lk + 15) / 16;
   int warps = key_tiles < DKDV_MAX_WARPS ? key_tiles : DKDV_MAX_WARPS;
@@ -768,9 +956,9 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* rel,
   if constexpr (std::is_same_v<T, bf16>) {
     return launch_dkdv_mma<D>(q, k, v, rel, key_mask, stats, dvec, dout, dk, dv, B, H, L, Lk, s);
   } else {
-    static bool configured = false;
+    static bool configured[lako::kMaxDevices] = {};
     constexpr size_t smem = dkdv_smem_bytes<D>();
-    cudaError_t err = configure(bwd_dkdv_kernel<T, D>, smem, configured);
+    cudaError_t err = lako::configure_smem(bwd_dkdv_kernel<T, D>, (int)smem, configured);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((Lk + TILE - 1) / TILE, H, B);
     bwd_dkdv_kernel<T, D><<<grid, THREADS, smem, s>>>(
@@ -782,31 +970,59 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* rel,
   }
 }
 
+// Picks K2b's bf16 block: up to dq_max_warps warps, spread evenly over the
+// fewest blocks that cover L's 16-row tiles (two blocks of 5 warps per
+// (b, h) at L = 130).
+template <int D>
+int launch_dq_mma(const void* q, const void* k, const void* v, const void* rel,
+                  const void* key_mask, const void* stats, const void* dvec, const void* dout,
+                  void* dq, int B, int H, int L, int Lk, cudaStream_t s) {
+  static bool configured[lako::kMaxDevices] = {};
+  cudaError_t err = lako::configure_smem(bwd_dq_mma_kernel<D>, SMEM_LIMIT, configured);
+  if (err != cudaSuccess) return (int)err;
+  const int row_tiles = (L + 15) / 16;
+  int warps = row_tiles < dq_max_warps<D>() ? row_tiles : dq_max_warps<D>();
+  const int blocks = (row_tiles + warps - 1) / warps;
+  warps = (row_tiles + blocks - 1) / blocks;
+  const size_t smem = dq_mma_smem_bytes<D>(warps, Lk);
+  if (smem > SMEM_LIMIT || blocks > 65535) return (int)cudaErrorInvalidValue;
+  bwd_dq_mma_kernel<D><<<dim3(B * H, blocks), 32 * warps, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(rel), static_cast<const uint8_t*>(key_mask),
+      static_cast<const float2*>(stats), static_cast<const float*>(dvec),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dq), H, L, Lk);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* rel,
               const void* key_mask, const void* stats, const void* dvec, const void* dout,
               void* dq, int B, int H, int L, int Lk, cudaStream_t s) {
-  static bool configured = false;
-  constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = configure(bwd_dq_kernel<T, D>, smem, configured);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + TILE - 1) / TILE, H, B);
-  bwd_dq_kernel<T, D><<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(rel), static_cast<const uint8_t*>(key_mask),
-      static_cast<const float2*>(stats), static_cast<const float*>(dvec),
-      static_cast<const T*>(dout), static_cast<T*>(dq), H, L, Lk);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same_v<T, bf16>) {
+    return launch_dq_mma<D>(q, k, v, rel, key_mask, stats, dvec, dout, dq, B, H, L, Lk, s);
+  } else {
+    static bool configured[lako::kMaxDevices] = {};
+    constexpr size_t smem = dq_smem_bytes<D>();
+    cudaError_t err = lako::configure_smem(bwd_dq_kernel<T, D>, (int)smem, configured);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((L + TILE - 1) / TILE, H, B);
+    bwd_dq_kernel<T, D><<<grid, THREADS, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const float*>(rel), static_cast<const uint8_t*>(key_mask),
+        static_cast<const float2*>(stats), static_cast<const float*>(dvec),
+        static_cast<const T*>(dout), static_cast<T*>(dq), H, L, Lk);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
 int launch_drel(const void* q, const void* k, const void* v, const void* rel,
                 const void* key_mask, const void* stats, const void* dvec, const void* dout,
                 void* drel, int B, int H, int L, int Lk, cudaStream_t s) {
-  static bool configured = false;
+  static bool configured[lako::kMaxDevices] = {};
   if constexpr (std::is_same_v<T, bf16>) {
     constexpr size_t smem = drel_mma_smem_bytes<D>();
-    cudaError_t err = configure(bwd_drel_mma_kernel<D>, smem, configured);
+    cudaError_t err = lako::configure_smem(bwd_drel_mma_kernel<D>, (int)smem, configured);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((Lk + DREL_KEYS - 1) / DREL_KEYS, (L + DREL_ROWS - 1) / DREL_ROWS, H);
     bwd_drel_mma_kernel<D><<<grid, DREL_THREADS, smem, s>>>(
@@ -817,7 +1033,7 @@ int launch_drel(const void* q, const void* k, const void* v, const void* rel,
     return (int)cudaGetLastError();
   } else {
     constexpr size_t smem = drel_smem_bytes<D>();
-    cudaError_t err = configure(bwd_drel_kernel<T, D>, smem, configured);
+    cudaError_t err = lako::configure_smem(bwd_drel_kernel<T, D>, (int)smem, configured);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((Lk + TILE - 1) / TILE, (L + TILE - 1) / TILE, H);
     bwd_drel_kernel<T, D><<<grid, THREADS, smem, s>>>(

@@ -8,8 +8,7 @@
 //   P[j]   = exp(S[j] - max S) / sum_j exp(S[j] - max S), rounded to T
 //   out[d] = sum_j P[j] * v[j,d]    (f32), stored as T
 // The bias is read through its strides, so a broadcast batch or head axis
-// (stride 0) costs no copy; a null bias adds nothing. Every row sees all Lk
-// keys at once, Lk <= 512 (the wrapper refuses more).
+// (stride 0) costs no copy; a null bias adds nothing.
 //
 // What bounds it on the H100: at the encoder's shape (16,16,130,64) it moves
 // 17 MB of q/k/v/out and 17 MB of f32 bias for 1.1 GFLOP, so memory traffic
@@ -42,6 +41,14 @@
 //   streams K and then V through shared memory in chunks of 128 keys
 //   (converted to f32 once), and each of its 8 warps owns 4 query rows, so
 //   that a K or V element read from shared memory feeds 4 rows.
+// - Lk > 512, both types: the same CUDA-core layout in two passes over the
+//   keys, 128 at a time, so that no row of logits stays on chip. Pass 1 forms
+//   the row max m and the row sum l of exp(S - m), l summed per 64 keys and
+//   rescaled as the max grows, each lane's share reduced over the warp at the
+//   end (the order of the tensor-core tiers); pass 2 recomputes S, rounds
+//   P = exp(S - m) / l (div_rn) to T and accumulates P.V in f32. K is read
+//   twice and V once. The JAX body rounds the normalised P before P.V, which a
+//   one-pass online softmax cannot do.
 
 #include <type_traits>
 
@@ -226,6 +233,196 @@ fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < D_PER_LANE; ++i)
       if (lane + 32 * i < D) orow[lane + 32 * i] = lako::from_f32<T>(o[r][i]);
   }
+}
+
+// ---- any type and head dim at Lk > 512: two passes, CUDA-core FMAs ---------
+
+constexpr int LONG_KEYS = 512;  // above this many keys, the two-pass tier
+constexpr int PP = CHUNK + 4;   // row pitch of a chunk's probabilities
+
+// shared memory: q rows [ROWS][D], a K or V chunk [CHUNK][D + 4], the rows'
+// probabilities of one chunk [ROWS][PP]
+inline size_t long_smem_bytes(int D) {
+  return sizeof(float) * ((size_t)ROWS * D + (size_t)CHUNK * kv_pitch(D) + (size_t)ROWS * PP);
+}
+
+// One block per (b*h, 32 query rows), 8 warps of 4 rows; lane owns keys
+// lane + 32 t of each chunk and output columns lane + 32 i.
+template <typename T, typename BT>
+__global__ void __launch_bounds__(THREADS)
+fused_attention_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const BT* __restrict__ bias,
+                            T* __restrict__ out, int H, int L, int Lk, int D,
+                            int sb, int sh, int si, int sj) {
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* kv = qs + ROWS * D;
+  float* ps = kv + CHUNK * kv_pitch(D);
+  const int kp = kv_pitch(D);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int row0 = blockIdx.y * ROWS;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const T* kb = k + (size_t)bh * Lk * D;
+  const T* vb = v + (size_t)bh * Lk * D;
+  const float* qw = qs + warp * ROWS_PER_WARP * D;
+  float* pw = ps + warp * ROWS_PER_WARP * PP;
+  const int wrow0 = row0 + warp * ROWS_PER_WARP;
+  const long long base = (long long)b * sb + (long long)h * sh;
+
+  load_rows(qs, D, q + ((size_t)bh * L + row0) * D, min(ROWS, L - row0), D);
+
+  // S of the chunk's keys c0 + lane + 32 t (K's chunk in kv) for the warp's
+  // rows: q.k summed in d order, then the bias; -inf past Lk, and no bias on
+  // rows past L (never stored)
+  auto logits = [&](int c0, int n, float (&acc)[ROWS_PER_WARP][KEYS_PER_LANE]) {
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_WARP; ++r)
+#pragma unroll
+      for (int t = 0; t < KEYS_PER_LANE; ++t) acc[r][t] = 0.f;
+    for (int d = 0; d < D; d += 4) {
+      float4 kf[KEYS_PER_LANE];
+#pragma unroll
+      for (int t = 0; t < KEYS_PER_LANE; ++t)
+        if (32 * t < n) kf[t] = *reinterpret_cast<const float4*>(kv + (lane + 32 * t) * kp + d);
+#pragma unroll
+      for (int r = 0; r < ROWS_PER_WARP; ++r) {
+        const float4 qf = *reinterpret_cast<const float4*>(qw + r * D + d);
+#pragma unroll
+        for (int t = 0; t < KEYS_PER_LANE; ++t) {
+          if (32 * t >= n) continue;
+          float a = acc[r][t];
+          a = fmaf(qf.x, kf[t].x, a);
+          a = fmaf(qf.y, kf[t].y, a);
+          a = fmaf(qf.z, kf[t].z, a);
+          acc[r][t] = fmaf(qf.w, kf[t].w, a);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_WARP; ++r) {
+      const int row = wrow0 + r;
+#pragma unroll
+      for (int t = 0; t < KEYS_PER_LANE; ++t) {
+        const int j = c0 + lane + 32 * t;
+        if (j >= Lk) {
+          acc[r][t] = -INFINITY;
+        } else if (row < L && bias != nullptr) {
+          acc[r][t] += lako::to_f32(bias[base + (long long)row * si + (long long)j * sj]);
+        }
+      }
+    }
+  };
+
+  // pass 1: the row max m and each lane's share of the row sum l
+  float m[ROWS_PER_WARP], l[ROWS_PER_WARP], rcp[ROWS_PER_WARP];
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_WARP; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+  for (int c0 = 0; c0 < Lk; c0 += CHUNK) {
+    const int n = min(CHUNK, Lk - c0);
+    __syncthreads();  // the previous chunk has been read
+    load_rows(kv, kp, kb + (size_t)c0 * D, n, D);
+    __syncthreads();
+    float acc[ROWS_PER_WARP][KEYS_PER_LANE];
+    logits(c0, n, acc);
+#pragma unroll
+    for (int g = 0; g < KEYS_PER_LANE / 2; ++g) {  // keys [64 g, 64 g + 64) of the chunk
+      if (64 * g >= n) break;
+#pragma unroll
+      for (int r = 0; r < ROWS_PER_WARP; ++r) {
+        const float x0 = acc[r][2 * g], x1 = acc[r][2 * g + 1];
+        const float mt = lako::warp_max(fmaxf(m[r], fmaxf(x0, x1)));  // finite: key 64 g is real
+        l[r] = l[r] * expf(m[r] - mt) + (expf(x0 - mt) + expf(x1 - mt));
+        m[r] = mt;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_WARP; ++r) {
+    l[r] = lako::warp_sum(l[r]);
+    rcp[r] = __frcp_rn(l[r]);
+  }
+
+  // pass 2: P = exp(S - m) / l rounded to T, then O += P.V, a chunk at a time
+  float o[ROWS_PER_WARP][D_PER_LANE] = {};
+  for (int c0 = 0; c0 < Lk; c0 += CHUNK) {
+    const int n = min(CHUNK, Lk - c0);
+    __syncthreads();  // the previous chunk's V and P have been read
+    load_rows(kv, kp, kb + (size_t)c0 * D, n, D);
+    __syncthreads();
+    float acc[ROWS_PER_WARP][KEYS_PER_LANE];
+    logits(c0, n, acc);
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_WARP; ++r)
+#pragma unroll
+      for (int t = 0; t < KEYS_PER_LANE; ++t)
+        if (lane + 32 * t < n)
+          pw[r * PP + lane + 32 * t] =
+              lako::round_to<T>(lako::div_rn(expf(acc[r][t] - m[r]), l[r], rcp[r]));
+    __syncthreads();  // every warp is done with K's chunk
+    load_rows(kv, kp, vb + (size_t)c0 * D, n, D);
+    __syncthreads();
+    int j = 0;
+    for (; j + 4 <= n; j += 4) {
+      float4 p4[ROWS_PER_WARP];
+#pragma unroll
+      for (int r = 0; r < ROWS_PER_WARP; ++r)
+        p4[r] = *reinterpret_cast<const float4*>(pw + r * PP + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float vv[D_PER_LANE];
+#pragma unroll
+        for (int i = 0; i < D_PER_LANE; ++i)
+          vv[i] = lane + 32 * i < D ? kv[(j + jj) * kp + lane + 32 * i] : 0.f;
+#pragma unroll
+        for (int r = 0; r < ROWS_PER_WARP; ++r) {
+          const float p = jj == 0 ? p4[r].x : jj == 1 ? p4[r].y : jj == 2 ? p4[r].z : p4[r].w;
+#pragma unroll
+          for (int i = 0; i < D_PER_LANE; ++i) o[r][i] = fmaf(p, vv[i], o[r][i]);
+        }
+      }
+    }
+    for (; j < n; ++j) {
+      float vv[D_PER_LANE];
+#pragma unroll
+      for (int i = 0; i < D_PER_LANE; ++i)
+        vv[i] = lane + 32 * i < D ? kv[j * kp + lane + 32 * i] : 0.f;
+#pragma unroll
+      for (int r = 0; r < ROWS_PER_WARP; ++r) {
+        const float p = pw[r * PP + j];
+#pragma unroll
+        for (int i = 0; i < D_PER_LANE; ++i) o[r][i] = fmaf(p, vv[i], o[r][i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_WARP; ++r) {
+    const int row = wrow0 + r;
+    if (row >= L) break;
+    T* orow = out + ((size_t)bh * L + row) * D;
+#pragma unroll
+    for (int i = 0; i < D_PER_LANE; ++i)
+      if (lane + 32 * i < D) orow[lane + 32 * i] = lako::from_f32<T>(o[r][i]);
+  }
+}
+
+template <typename T, typename BT>
+int launch_long(const void* q, const void* k, const void* v, const void* bias, void* out,
+                int B, int H, int L, int Lk, int D, int sb, int sh, int si, int sj,
+                cudaStream_t stream) {
+  auto kernel = fused_attention_long_kernel<T, BT>;
+  static bool configured[lako::kMaxDevices] = {};
+  const cudaError_t err = lako::configure_smem(kernel, (int)long_smem_bytes(MAX_D), configured);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (L + ROWS - 1) / ROWS);
+  kernel<<<grid, THREADS, long_smem_bytes(D), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const BT*>(bias), static_cast<T*>(out), H, L, Lk, D, sb, sh, si, sj);
+  return (int)cudaGetLastError();
 }
 
 // ---- bfloat16 at D = 64 or 128: tensor cores (mma.sync m16n8k16), one pass -
@@ -567,6 +764,8 @@ template <typename T, typename BT>
 int launch(const void* q, const void* k, const void* v, const void* bias, void* out,
            int B, int H, int L, int Lk, int D, int sb, int sh, int si, int sj,
            cudaStream_t stream) {
+  if (Lk > LONG_KEYS)
+    return launch_long<T, BT>(q, k, v, bias, out, B, H, L, Lk, D, sb, sh, si, sj, stream);
   if constexpr (std::is_same_v<T, bf16>) {
     if (D == 64)
       return launch_mma<64, BT>(q, k, v, bias, out, B, H, L, Lk, sb, sh, si, sj, stream);
@@ -598,8 +797,8 @@ int launch_bias(const void* q, const void* k, const void* v, const void* bias, v
 
 // q: (B,H,L,D), k, v: (B,H,Lk,D), out: (B,H,L,D), all contiguous in `dtype`;
 // bias: null, or element (b,h,i,j) at b*sb + h*sh + i*si + j*sj in
-// `bias_dtype`. D <= 128 and a multiple of 8, q/k/v 16-byte aligned, Lk <= 512
-// (checked by the Python wrapper). Returns a cudaError_t code (0 = launched).
+// `bias_dtype`. D <= 128 and a multiple of 8, q/k/v 16-byte aligned (checked by
+// the Python wrapper). Returns a cudaError_t code (0 = launched).
 extern "C" int lako_fused_attention(const void* q, const void* k, const void* v,
                                     const void* bias, void* out, int B, int H, int L,
                                     int Lk, int D, int sb, int sh, int si, int sj,

@@ -4,8 +4,10 @@ Counterpart of lako_tpu/ops/decode_cross_attn.py. One decode step of
 cross-attention against int8 K/V laid out ``(B, h, d, K)`` with the key axis
 minor (models/t5/engine.py ``_quantize_kv``). The per-(b,h,d) K scale folds
 into q and the V scale into the output, so K/V stay int8 until they are in
-registers. On CUDA tensors the wrapper launches ``csrc/decode_cross_attn.cu``;
-on CPU tensors it runs :func:`reference`, the plain version.
+registers. On CUDA tensors the wrapper launches ``csrc/decode_cross_attn.cu``
+(any number of keys K; the keys of a (b, h) split over up to 8 blocks, merged
+in the same launch); on CPU tensors it runs :func:`reference`, the plain
+version.
 """
 
 from __future__ import annotations
@@ -14,9 +16,8 @@ import torch
 
 from lako_tpu_torch.ops import _build
 
-# the kernel keeps q and one row of logits, d + K floats, in the 48 KB of
-# shared memory a block has by default (less a little for its reductions)
-SMEM_FLOATS = 48 * 1024 // 4 - 64
+# one warp per 16 output rows, at most 16 warps a block
+MAX_HEAD_DIM = 256
 
 
 def reference(q, k_i8, k_scale, v_i8, v_scale, bias):
@@ -77,9 +78,9 @@ def fused_decode_cross_attention(q, k_i8, k_scale, v_i8, v_scale, bias):
     if q.device.type != "cuda":
         raise ValueError(f"fused_decode_cross_attention: no kernel for device {q.device}")
     B, h, d, K = k_i8.shape
-    if d + K > SMEM_FLOATS or B > 65535:
+    if d > MAX_HEAD_DIM or B > 65535 or h > 65535:
         raise ValueError(f"fused_decode_cross_attention kernel limits exceeded: "
-                         f"B={B}, h={h}, d={d}, K={K}")
+                         f"B={B}, h={h}, d={d} (at most {MAX_HEAD_DIM})")
     out = torch.empty((B, h, d), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         fn = _build.bind("lako_decode_cross_attn", 7, 5)

@@ -8,7 +8,8 @@ Pallas kernel: ``use_flash_attention`` with ``L < flash_min_length`` and no
 dropout in the way (models/t5/layers.py).
 
 On CUDA tensors the wrapper launches the hand-written kernel in
-``csrc/fused_attention.cu``; on CPU tensors it runs
+``csrc/fused_attention.cu`` (any number of keys: above 512 a two-pass tier
+streams them); on CPU tensors it runs
 :func:`fused_attention_reference`, the JAX package's ``_xla_attention``.
 Where an input requires grad it is a ``torch.autograd.Function``: the forward
 is the kernel and the backward recomputes attention in plain PyTorch, as the
@@ -30,7 +31,6 @@ import torch
 
 from lako_tpu_torch.ops import _build
 
-MAX_KEYS = 512          # the kernel keeps a whole row of logits on chip
 MAX_HEAD_DIM = 128
 _INT32_MAX = 2 ** 31 - 1
 
@@ -81,9 +81,6 @@ def _forward(q, k, v, bias):
         raise ValueError(f"fused_attention: no kernel for device {q.device}")
     B, H, L, D = q.shape
     Lk = k.shape[2]
-    if Lk > MAX_KEYS:
-        raise ValueError(f"fused_attention kernel takes at most {MAX_KEYS} keys (a whole "
-                         f"row of logits stays on chip), got Lk={Lk}")
     if D > MAX_HEAD_DIM or D % 8:
         raise ValueError(f"fused_attention kernel takes head dims <= {MAX_HEAD_DIM} that "
                          f"are multiples of 8, got {D}")

@@ -42,7 +42,13 @@ class ServiceConfig:
     decode_kv_dtype: str = "native"  # "native" | "int8"
     decode_weights_dtype: str = "native"
     decode_chunk_size: Optional[int] = None
+    # the beam engine's self-KV formulation; only the default until beam
+    # search is ported
+    decode_self_attn_impl: str = "allslots"
     engine_policy: str = "fixed"     # "fixed" | "auto"
+    # occupancy at which engine_policy="auto" picks chunked decode; only the
+    # default until that policy is ported
+    policy_chunked_min_occupancy: Optional[int] = None
     # micro-batching window of the HTTP server; 0 = one batch per request
     batch_window_ms: float = 0.0
     mesh_model: int = 1
@@ -77,6 +83,15 @@ class LakoService:
         if cfg.num_beams > 1:
             raise NotImplementedError(
                 "beam search (num_beams > 1) is not ported yet (ROADMAP item 10)")
+        if cfg.decode_self_attn_impl != "allslots":
+            raise NotImplementedError(
+                f"decode_self_attn_impl={cfg.decode_self_attn_impl!r} belongs to the beam "
+                "engine, not ported yet (ROADMAP item 10)")
+        # checked whatever the engine policy, unlike the JAX service
+        if cfg.policy_chunked_min_occupancy is not None:
+            raise NotImplementedError(
+                "policy_chunked_min_occupancy belongs to engine_policy='auto', not "
+                "ported yet (ROADMAP item 11)")
         self.cfg = cfg
         self.device = resolve_device(device)
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32

@@ -100,9 +100,36 @@ def test_streamed_bf16_kernels_at_edges(cuda_device, L, Lk, D):
 
 
 @pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Lk", [7, 16, 65, 330])
+@pytest.mark.parametrize("L", [1, 16, 17, 145])
+def test_dq_bf16_kernel_at_edges(cuda_device, L, Lk, D):
+    """K2b in bf16 on the tensor cores against its plain version at the same
+    edges as K1 and K2a, row 1 fully masked (its dQ exactly 0): within 3e-2
+    of the largest magnitude, and bitwise the same in a second launch (no
+    atomics)."""
+    q, k, v, rel, mask = _attn_inputs(2, 3, L, Lk, D, cuda_device, torch.bfloat16)
+    out, stats = k1.streamed_attention_fwd_reference(q, k, v, rel, mask)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(8),
+                       device=cuda_device).to(torch.bfloat16)
+    args = (q, k, v, rel, mask, stats, (dout.float() * out.float()).sum(-1), dout)
+    before = k1.streamed_attention_bwd_dq.launches
+    first = k1.streamed_attention_bwd_dq(*args)
+    second = k1.streamed_attention_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert k1.streamed_attention_bwd_dq.launches == before + 2
+    want = k1.streamed_attention_bwd_dq_reference(*args)
+    assert first.shape == want.shape and first.dtype == torch.bfloat16
+    assert bool(torch.isfinite(first.float()).all())
+    assert _rel_err(first, want) <= 3e-2
+    assert not first[1].float().any()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("L,Lk", [(17, 65), (145, 330), (130, 130)])
 def test_streamed_bf16_kernels_one_batch_row(cuda_device, L, Lk, D):
-    """B = 1, no fully masked row: K1 and K2a against their plain versions."""
+    """B = 1, no fully masked row: K1, K2a and K2b against their plain
+    versions."""
     q, k, v, rel, mask = _attn_inputs(1, 2, L, Lk, D, cuda_device, torch.bfloat16,
                                       padding_row=False)
     out, stats = k1._forward(q, k, v, rel, mask, with_stats=True)
@@ -115,6 +142,8 @@ def test_streamed_bf16_kernels_one_batch_row(cuda_device, L, Lk, D):
     for got, want in zip(k1.streamed_attention_bwd_dkdv(*args),
                          k1.streamed_attention_bwd_dkdv_reference(*args)):
         assert _rel_err(got, want) <= 3e-2
+    assert _rel_err(k1.streamed_attention_bwd_dq(*args),
+                    k1.streamed_attention_bwd_dq_reference(*args)) <= 3e-2
 
 
 def _assert_bwd_close(got, want, dtype):
@@ -244,6 +273,41 @@ def test_decode_cross_kernel_matches_plain(cuda_device, B, K):
     torch.testing.assert_close(out, k3.reference(*args), rtol=1e-5, atol=1e-5)
 
 
+def _int8_cross_inputs(B, K, q_dtype, dev, h=16, d=64, seed=0):
+    """q, int8 K/V with random per-channel scales, and a (B,1,K) mask bias,
+    made on the card without a float copy of K/V."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, h, d, generator=gen, device=dev).to(q_dtype)
+    kv = [torch.randint(-127, 128, (B, h, d, K), generator=gen, device=dev, dtype=torch.int8)
+          for _ in range(2)]
+    scales = [torch.rand(B, h, d, generator=gen, device=dev) * 0.02 + 0.002 for _ in range(2)]
+    mask = torch.rand(B, K, generator=gen, device=dev) < 0.7
+    mask[:, 0] = True
+    bias = torch.where(mask, 0.0, -1e9).float()[:, None, :].contiguous()
+    return q, kv[0], scales[0], kv[1], scales[1], bias
+
+
+# K past the parent's limit of ~12,160 keys; an odd K reads bytes, not words
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [37, 260, 12161, 25000])
+@pytest.mark.parametrize("B", [1, 8, 128])
+def test_decode_cross_kernel_split_keys(cuda_device, B, K, q_dtype):
+    """K3 (the keys split over a cluster of blocks, merged in the launch)
+    against its plain version within 1e-5 (f32 logits, softmax and output),
+    the plain version on the whole batch (its f32 product sums the logits in
+    an order that depends on the batch, and an ulp of a logit moves the
+    output by ~1e-5); bitwise the same in a second launch (a fixed merge
+    order, no atomics)."""
+    args = _int8_cross_inputs(B, K, q_dtype, cuda_device)
+    before = k3.fused_decode_cross_attention.launches
+    out = k3.fused_decode_cross_attention(*args)
+    again = k3.fused_decode_cross_attention(*args)
+    torch.cuda.synchronize()
+    assert k3.fused_decode_cross_attention.launches == before + 2
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, k3.reference(*args), rtol=1e-5, atol=1e-5)
+
+
 def test_engine_kernels_on_the_card(cuda_device):
     """A tiny model on the card: the kernel configuration launches both
     kernels and agrees with the no-kernel one on >= 0.9 of the tokens; a
@@ -299,7 +363,7 @@ def _dense_bias(rel, mask, shape):
 def test_fused_attention_kernel_matches_plain(cuda_device, dtype, atol, shape, bias_shape):
     """K4 against its plain version, a fully masked row included, with full
     and broadcast (batch or head) f32 biases; a bf16 bias and none too; more
-    than 512 keys raises. bf16 at head dims 64 and 128 takes the tensor-core
+    than 512 keys (no bias) through the two-pass tier. bf16 at head dims 64 and 128 takes the tensor-core
     kernel (logits in registers up to 160 keys, in shared memory at 257 and
     512; odd Lk reads the bias one element at a time; L=1; Lk < 16), at 32
     the CUDA-core one."""
@@ -317,9 +381,36 @@ def test_fused_attention_kernel_matches_plain(cuda_device, dtype, atol, shape, b
     torch.testing.assert_close(k4.fused_attention(q, k, v, None).float(),
                                k4.fused_attention_reference(q, k, v, None).float(),
                                rtol=atol, atol=atol)
-    with pytest.raises(ValueError, match="512 keys"):
-        k4.fused_attention(q, *(torch.cat([t] * (512 // t.shape[2] + 1), 2) for t in (k, v)),
-                           None)
+    # past 512 keys the two-pass tier takes the same call
+    kk, vv = (torch.cat([t] * (512 // t.shape[2] + 1), 2) for t in (k, v))
+    torch.testing.assert_close(k4.fused_attention(q, kk, vv, None).float(),
+                               k4.fused_attention_reference(q, kk, vv, None).float(),
+                               rtol=atol, atol=atol)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-4), (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("Lk", [513, 1000, 2048])
+def test_fused_attention_beyond_512_keys(cuda_device, Lk, dtype, atol, D):
+    """K4's two-pass tier (Lk > 512) against its plain version, a fully
+    masked row included: a full f32 bias, a head-broadcast one, one read
+    through an odd row stride (a slice of a wider tensor), one with the keys
+    strided (a transposed copy) and a bf16 one; max abs error 2e-4 (f32) and
+    1.6e-2 (bf16, the tensor-core tiers' bound)."""
+    q, k, v, rel, mask = _attn_inputs(2, 3, 70, Lk, D, cuda_device, dtype)
+    full = _dense_bias(rel, mask, (2, 3, 70, Lk))
+    wide = torch.zeros(2, 3, 70, Lk + 1, device=cuda_device)
+    wide[..., :Lk] = full
+    biases = [full, _dense_bias(rel, mask, (2, 1, 70, Lk)), wide[..., :Lk],
+              full.transpose(2, 3).contiguous().transpose(2, 3), full.bfloat16()]
+    for bias in biases:
+        before = k4.fused_attention.launches
+        out = k4.fused_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        assert k4.fused_attention.launches == before + 1
+        want = k4.fused_attention_reference(q, k, v, bias)
+        assert out.shape == want.shape and out.dtype == dtype
+        assert float((out.float() - want.float()).abs().max()) <= atol, bias.stride()
 
 
 def test_fused_attention_gradients_on_the_card(cuda_device):
@@ -334,6 +425,25 @@ def test_fused_attention_gradients_on_the_card(cuda_device):
     for fn in (k4.fused_attention, k4.fused_attention_reference):
         leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
         grads.append(torch.autograd.grad(fn(*leaves), leaves, dout))
+    for a, b in zip(*grads):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+def test_fused_attention_gradients_beyond_512_keys(cuda_device):
+    """The autograd Function at Lk = 600 (the two-pass tier forward, the plain
+    recomputed backward): equal to autograd of the plain version within 2e-4
+    (f32), dbias summed to the head-broadcast bias's shape."""
+    q, k, v, rel, mask = _attn_inputs(2, 3, 40, 600, 64, cuda_device, torch.float32)
+    bias = _dense_bias(rel, mask, (2, 1, 40, 600))
+    dout = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(2),
+                       device=cuda_device)
+    grads = []
+    for fn in (k4.fused_attention, k4.fused_attention_reference):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        before = k4.fused_attention.launches
+        grads.append(torch.autograd.grad(fn(*leaves), leaves, dout))
+        assert k4.fused_attention.launches == before + (fn is k4.fused_attention)
     for a, b in zip(*grads):
         assert a.shape == b.shape
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)

@@ -107,6 +107,33 @@ def test_streamed_plain_dkdv_matches_jax_kernel(L, Lk):
     np.testing.assert_allclose(dv.numpy(), np.asarray(jdv), rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("L", [1, 16, 17])
+@pytest.mark.parametrize("Lk", [7, 65])
+def test_streamed_plain_dq_matches_jax_kernel(L, Lk):
+    """Plain K2b on the plain forward's statistics against dQ of jax.vjp
+    through the interpreted Pallas kernel at the CUDA kernel's edges, atol/rtol
+    2e-4 (f32), on the rows with a real key. Batch row 1 is fully masked: the
+    JAX kernel's lse is wrong there, so that row is held to jax.vjp of the XLA
+    reference instead, whose dQ is exactly 0 (every logit is -1e9 whatever q
+    is)."""
+    q, k, v, rel, mask = _attn_inputs(2, 2, L, Lk, 8)
+    g = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
+    tq, tk, tv, trel, tmask, tg = _torch(q, k, v, rel, mask, g)
+    out, stats = k1.streamed_attention_fwd_reference(tq, tk, tv, trel, tmask)
+    dq = k1.streamed_attention_bwd_dq(tq, tk, tv, trel, tmask, stats, (tg * out).sum(-1),
+                                      tg).numpy()
+    want = {}
+    for name, fn in (("kernel", lambda *a: jax_streamed(*a, 128, 128, True)),
+                     ("xla", _xla_reference)):
+        _, vjp = jax.vjp(lambda *a: fn(*a, jnp.asarray(mask)), *map(jnp.asarray, (q, k, v, rel)))
+        want[name] = np.asarray(vjp(jnp.asarray(g))[0])
+    live = mask.any(axis=1)
+    assert not live[1] and live[0]
+    np.testing.assert_allclose(dq[live], want["kernel"][live], rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(dq, want["xla"], rtol=2e-4, atol=2e-4)
+    assert not dq[1].any()
+
+
 def _port_grads(q, k, v, rel, mask, g, fn=None):
     """Gradients of sum(out * g) in q, k, v, rel through ``fn``."""
     fn = fn or k1.streamed_attention
@@ -225,9 +252,11 @@ def _cross_inputs(B=2, h=4, d=16, K=37, seed=0):
     return q, k_i8, k_s, v_i8, v_s, bias
 
 
-@pytest.mark.parametrize("K", [37, 128, 260])
+@pytest.mark.parametrize("K", [37, 128, 260, 12_500])
 def test_decode_cross_plain_matches_jax(K):
-    """Plain K3 vs the interpreted Pallas kernel and the XLA reference, 1e-5."""
+    """Plain K3 vs the interpreted Pallas kernel and the XLA reference, 1e-5.
+    K = 12,500 lies past the ~12,160 keys the parent's CUDA kernel took (its
+    row of logits in shared memory)."""
     arrays = _cross_inputs(K=K)
     out = k3.fused_decode_cross_attention(*_torch(*arrays)).numpy()
     jarrays = [jnp.asarray(a) for a in arrays]
@@ -278,12 +307,15 @@ def _jmaybe(a):
     (2, 2, 16, 16, 8, None),
     (2, 2, 20, 257, 8, (2, 2, 20, 257)),
     (2, 2, 12, 7, 8, (2, 1, 12, 7)),
+    (2, 2, 12, 600, 8, (2, 2, 12, 600)),
+    (2, 2, 12, 600, 8, (1, 2, 12, 600)),
 ])
 def test_fused_attention_plain_matches_jax_kernel(B, H, L, Lk, D, bias_shape):
     """Plain K4 vs the interpreted Pallas kernel, full and broadcast biases
     and none, no fully masked row: within 1e-5. Lk = 257 lies past the key
     count up to which the CUDA kernel keeps the logits in registers (160),
-    Lk = 7 below its 16-key padding."""
+    Lk = 7 below its 16-key padding, Lk = 600 in its two-pass tier (past the
+    512 keys the parent's wrapper took)."""
     q, k, v, bias = _dense_inputs(B, H, L, Lk, D, bias_shape)
     out = k4.fused_attention(*_torch(q, k, v), _maybe(bias)).numpy()
     want = np.asarray(jax_fused(*map(jnp.asarray, (q, k, v)), _jmaybe(bias), True))

@@ -158,6 +158,28 @@ def test_unported_service_options_raise(services):
     assert psvc.retrieve_facts([{"question": "q"}]) == [[]]
 
 
+@pytest.mark.parametrize("field,other,item", [
+    ("decode_self_attn_impl", "gather", "10"),
+    ("policy_chunked_min_occupancy", 3, "11"),
+])
+def test_reference_service_fields(services, field, other, item):
+    """Every field of the JAX ServiceConfig exists in the port's with the same
+    default; the two that belong to unported items are accepted by keyword at
+    that default and raise NotImplementedError naming their item otherwise
+    (policy_chunked_min_occupancy under either engine policy)."""
+    _, psvc, params = services
+    port_fields = {f.name: f.default for f in dataclasses.fields(ServiceConfig)}
+    for f in dataclasses.fields(JaxServiceConfig):
+        assert f.name in port_fields and port_fields[f.name] == f.default, f.name
+    t5 = port_config.T5Config(**dict(TINY, vocab_size=psvc.tokenizer.vocab_size))
+    sd = params_from_jax(params)
+    cfg = dataclasses.replace(psvc.cfg, **{field: port_fields[field]})
+    assert LakoService(cfg, t5, sd, psvc.tokenizer, device="cpu").cfg == psvc.cfg
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+        LakoService(dataclasses.replace(psvc.cfg, **{field: other}), t5, sd, psvc.tokenizer,
+                    device="cpu")
+
+
 @pytest.mark.parametrize("name", ["T5Config", "ReaderDataConfig", "OptimConfig",
                                   "MeshConfig", "ReaderTrainConfig"])
 def test_copied_configs_match(name):
