@@ -6,7 +6,8 @@
 1. Prints the card (nvidia-smi name and power limit, torch's device name).
 2. Builds the CUDA kernels from ``lako_tpu_torch/csrc`` with nvcc and, beside
    the build, prints the registers and spill bytes ptxas reports for each
-   kernel of ``PTXAS_SOURCES`` (K1, K4, the streamed backward and K3).
+   kernel of ``PTXAS_SOURCES`` (K1, K4, the streamed backward, K3, K5/K6),
+   and K5's SASS instruction count (cuobjdump -sass).
 3. Checks each kernel against its plain PyTorch version on the card, at the
    main path's shapes and in its working types, and times the kernel, the
    plain version and, where one exists, the one PyTorch call that computes
@@ -19,7 +20,8 @@
    the autograd Function; dq and drel bitwise equal in a second launch); K3
    int8 decode cross-attention at the served shape, at B=128 and at 25,000
    keys (bitwise equal in a second launch, scaled_dot_product_attention on
-   bf16 K/V of the same shape printed as the native-KV read); K4
+   bf16 K/V of the same shape printed as the native-KV read), and at head
+   dims 320 and 512 (not timed); K4
    whole-block attention with a dense bias (full and broadcast, fully masked
    rows, 512 keys, and 1024 keys through its two-pass tier against
    scaled_dot_product_attention); achieved GB/s beside K1, K2a, K2b, K2c, K3
@@ -27,8 +29,12 @@
    scaled_dot_product_attention (the shape where the JAX default
    flash_min_length=512 sends the encoder to K1); K5
    the one-pass 8-bit Adam update (codes, scales and u bitwise equal to the
-   plain version, at a t5-large embedding leaf, a dense kernel leaf and the
-   JAX package's micro shape); K6 its requantization-free fragment.
+   plain version, both bias corrections: one leaf at a t5-large embedding
+   leaf, a dense kernel leaf and the JAX package's micro shape, timed at the
+   micro shape; one launch over a tree of odd leaves; one launch over the
+   training path's 509 leaves, each in its routed order, timed there and
+   bounded by K5_OPS, its operation model, or its bytes); K6 its
+   requantization-free fragment.
 4. Floor proof: the port of the JAX package's 8-bit Adam micro-benchmark
    (``lako_tpu_torch.bench.adam8_micro``) times K5, K6 and the plain
    bf16-moment Adam update at the micro shape and prints the share of K5's
@@ -48,8 +54,10 @@
       same step without them, in float32 and in bfloat16 (bf16 gradients
       held to the float32 ones, no further than the plain bf16 run), the
       relative-position embedding's gradient included;
-   b. (whole-block route) one AdamW8bit update of every parameter tensor
-      from the same gradients, K5 against its plain version;
+   b. (whole-block route) AdamW8bit updates of every parameter tensor from
+      the same gradients, K5 once an update against the plain per-leaf
+      versions in the same routing, both bias corrections; one update's
+      device and wall time;
    c. ``train_reader`` for 2 epochs on a synthetic fixture with an eval at
       the end of each (AdamW on the streamed route, AdamW8bit on the
       whole-block route): the loss falls, EM is in [0, 1], the history has
@@ -84,6 +92,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lako_tpu_torch.bench.tree_compare import PEAK_BYTES, device_ms, path_grads, sass_counts
+
 SEED = 0
 K1_TOL = dict(bf16=(6e-2, 5e-3), f32=(2e-4, 1e-5))   # (max abs, mean abs)
 K3_TOL = 1e-5                                        # max abs and rel, f32 out
@@ -104,19 +114,42 @@ EMBEDDING_SCALE = 0.02
 K5_DRAWS = (1, 7)                                    # step counts of the K5 checks
 ADAM8_MICRO = (179_688, 256)                         # scripts/bench_adam8_micro.py
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): memory
-# bytes/s, and operations/s by type ("f32" = CUDA-core float32)
-PEAK_BYTES = 3.35e12
+# bytes/s (tree_compare.PEAK_BYTES), and operations/s by type ("f32" =
+# CUDA-core float32)
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
-# operations per element, counted in csrc/adam8.cu: K5 ~46 float and ~30
-# integer (codes, dither hashes), K6 ~16 float and ~6 integer
-K5_OPS, K6_OPS = 76, 22
+# K6's operations per element, counted in csrc/adam8.cu: ~16 float and ~6
+# integer, bounded at the f32 peak
+K6_OPS = 22
+# K5's operation model: per element, what the bit-exact function needs, by
+# the pipe that issues it, at that pipe's rate per SM per clock at compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instructions)
+K5_OPS = {
+    # fp32 add/mul/FMA: m dequant 1, v dequant 4 (2^-(q/8)'s fraction 2 and
+    # exponent 1, the scale 1), the EMAs 5, u's square root 3 and division 3
+    # (the Newton steps around MUFU) and + eps 1, m's requantization 6
+    # (quotient and correction 3, fraction, dither scale, +1), v's 10
+    # (log2 polynomial 5, difference and x8 2, fraction, dither scale, +1)
+    "fp32": 33,
+    # int32 arithmetic and logic, fp32 compare/min/max: v's code fields,
+    # exponent, three selects and zero test 9; the two hashes 8 each; the
+    # log2 fields 4 and zero tests 4; packing 2; |m| and v maxima 2; the two
+    # dither compares and clamps 6
+    "alu": 43,
+    # conversions and MUFU: m's code byte, u's rsqrt and rcp, per moment a
+    # floor, a dither and a code conversion, and log2's exponent
+    "conv": 10,
+    # shuffles: two 5-step row reductions per 256 elements
+    "shfl": 10 / 256,
+}
+PIPE_RATE = {"fp32": 128, "alu": 64, "conv": 16, "shfl": 32}
+SMS = 132
 ANIMALS = ["cat", "dog", "cow", "duck", "frog", "bee", "owl", "wolf", "horse", "goat"]
 SOUNDS = ["meow", "woof", "moo", "quack", "croak", "buzz", "hoot", "howl", "neigh", "bleat"]
 
 
 # the sources whose kernels' registers and spills the run reports (ptxas -v)
 PTXAS_SOURCES = ("flash_streamed_fwd.cu", "fused_attention.cu", "flash_streamed_bwd.cu",
-                 "decode_cross_attn.cu")
+                 "decode_cross_attn.cu", "adam8.cu")
 
 
 def log(*args) -> None:
@@ -160,30 +193,6 @@ def ptxas_report(procs, nvcc_dir) -> None:
                 entry = None
 
 
-def device_ms(fn, calls: int = 20, replays: int = 10) -> float:
-    """Device time per call: ``calls`` back-to-back calls captured in one
-    CUDA graph, replayed ``replays`` times between CUDA events."""
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (replays * calls)
-
-
 def event_ms(fn, calls: int = 5) -> float:
     """Device time per call of a function too slow for a CUDA graph to help:
     ``calls`` calls between CUDA events, after one warm-up call."""
@@ -209,10 +218,29 @@ def bound(n_bytes: float, ops: float, kind: str):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def entry(name, source, replaces, max_err, kern, plain, n_bytes, ops, kind, library):
-    bound_ms, bound_by = bound(n_bytes, ops, kind)
+def k5_bound(n_bytes: float, elements: float, sm_mhz: float):
+    """(bound_ms, bound_by, detail) of K5: the larger of the bytes over the
+    memory rate and K5_OPS on the SMs at sm_mhz, where the ops take the
+    larger of their busiest pipe and the issue slots (one instruction a
+    clock on each of an SM's 4 schedulers: 128 lanes a clock)."""
+    per_pipe = {p: n / PIPE_RATE[p] for p, n in K5_OPS.items()}
+    issue = sum(K5_OPS.values()) / 128
+    clocks = max(issue, *per_pipe.values())        # per element, on one SM
+    by_ops = elements * clocks / SMS / (sm_mhz * 1e6) * 1e3
+    by_bytes = n_bytes / PEAK_BYTES * 1e3
+    detail = (f"ops {by_ops:.4f} ms ({clocks:.3f} SM clocks an element: "
+              + ", ".join(f"{p} {c:.3f}" for p, c in per_pipe.items())
+              + f", issue {issue:.3f}; {SMS} SMs at {sm_mhz:.0f} MHz), bytes {by_bytes:.4f} ms")
+    return (by_bytes, "bytes", detail) if by_bytes >= by_ops else (by_ops, "operations", detail)
+
+
+def entry(name, source, replaces, max_err, kern, plain, n_bytes, ops, kind, library,
+          bound_ms=None, bound_by=None):
+    if bound_ms is None:
+        bound_ms, bound_by = bound(n_bytes, ops, kind)
     log(f"  {name}: bound {bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB, "
-        f"{ops / 1e9:.3f} G operations), kernel {kern / bound_ms:.1f}x the bound; "
+        f"{ops / 1e9:.3f} G {'elements' if kind == 'k5' else 'operations'}), kernel "
+        f"{kern / bound_ms:.1f}x the bound; "
         f"library call " + ("none" if library is None else f"{library:.4f} ms"))
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "max_abs_err": max_err, "ms": kern, "plain_ms": plain, "bound_ms": bound_ms,
@@ -523,6 +551,31 @@ def check_decode_cross(dev):
             f"of 20 calls)")
         timed[B, K] = (err, kern, plain, n_bytes, ops)
         del args, ck, cv, k16, v16, out, again, ref
+    for d in (320, 512):   # past 16 warps of 16 rows: row groups, a ring that follows d
+        q = torch.randn(8, 4, d, generator=gen, device=dev).to(torch.bfloat16)
+        ck, cv = (_quantize_kv(torch.randn(8, 4, d, 260, generator=gen, device=dev))
+                  for _ in range(2))
+        bias = torch.where(torch.rand(8, 260, generator=gen, device=dev) < 0.7, 0.0,
+                           -1e9)[:, None, :].float().contiguous()
+        bias[..., 0] = 0.0
+        args = (q, ck.values, ck.scale, cv.values, cv.scale, bias)
+        out = k3.fused_decode_cross_attention(*args)
+        ref = k3.reference(*args)
+        torch.cuda.synchronize()
+        # logits grow as sqrt(d): both float32 orders are held to float64
+        kf, vf = (c.values.double() * c.scale.double() for c in (ck, cv))
+        p = torch.softmax(torch.einsum("bhd,bhdk->bhk", q.double(), kf) + bias.double(), -1)
+        exact = torch.einsum("bhk,bhdk->bhd", p, vf)
+        err = float((out.double() - exact).abs().max())
+        plain_err = float((ref.double() - exact).abs().max())
+        ok = err <= K3_TOL + 2 * plain_err
+        log(f"  (8,4,{d},260) q bf16, int8 K/V (head dim {d}): max abs error against float64 "
+            f"{err:.3e}, the plain float32 version's {plain_err:.3e}; against plain "
+            f"{float((out - ref).abs().max()):.3e}; bound {K3_TOL:g} + 2 x plain's -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K3 at head dim {d} is further from float64 than plain")
+        del args, ck, cv, out, ref, kf, vf, p, exact
     err, kern, plain, n_bytes, ops = timed[8, 260]
     return entry("fused_decode_cross_attention", "lako_tpu_torch/csrc/decode_cross_attn.cu",
                  "lako_tpu/ops/decode_cross_attn.py:82", err, kern, plain, n_bytes, ops,
@@ -612,24 +665,97 @@ def adam8_state(gen, dev, n):
     return mq, ms, vq, vs
 
 
-def compare_adam8(label, got, want, exact_u):
-    """K5's outputs against the plain version's: codes and scales bitwise,
-    u bitwise or within rtol 2e-6 (the bias correction's expf and logf)."""
-    u, w = got[0].float(), want[0].float()
-    u_err = float(((u - w).abs() / w.abs().clamp_min(1e-30)).max())
-    codes = [bool(torch.equal(a, b)) for a, b in zip(got[1:], want[1:])]
-    ok = all(codes) and (bool(torch.equal(got[0], want[0])) if exact_u else u_err <= 2e-6)
-    log(f"  {label}: codes and scales (mq, ms, vq, vs) bitwise equal {codes}; u max rel "
-        f"err {u_err:.3e} ({'bitwise' if exact_u else 'rtol 2e-6'}) -> {'ok' if ok else 'FAIL'}")
-    if not ok:
+def compare_adam8(label, got, want):
+    """K5's outputs against the plain version's: u, codes and scales bitwise
+    (the bias corrections come from the host); returns u's max abs error."""
+    same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+    log(f"  {label}: u, mq, ms, vq, vs bitwise equal {same} -> {'ok' if all(same) else 'FAIL'}")
+    if not all(same):
         raise AssertionError(f"K5 disagrees with its plain version at {label}")
-    return float((u - w).abs().max())
+    return float((got[0].float() - want[0].float()).abs().max())
 
 
-def check_adam8(dev):
+def compare_adam8_leaves(label, layout, got, want):
+    """The multi-leaf K5 against its plain per-leaf versions: u of every leaf
+    and the flat new state bitwise."""
+    (us, flat), (want_us, want_flat) = got, want
+    same_u = sum(bool(torch.equal(a, b)) for a, b in zip(us, want_us))
+    same_state = [bool(torch.equal(a, b)) for a, b in zip(flat, want_flat)]
+    ok = same_u == len(us) and all(same_state)
+    jnp = sum(layout.jnp_order)
+    log(f"  {label}: {len(us)} leaves in one launch ({len(us) - jnp} in the kernel's order, "
+        f"{jnp} in the jnp order); u bitwise equal on {same_u}/{len(us)} leaves, the flat "
+        f"state (mq, ms, vq, vs) {same_state} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K5 disagrees with its plain versions at {label}")
+
+
+def adam8_tree(gen, dev, kinds):
+    """(grads, flat state, layout) of K5 for leaves (shape, transposed,
+    dtype, jnp order, salt): random gradients and a mid-training state."""
+    from lako_tpu_torch.ops.adam8_kernel import LeafLayout
+
+    grads = [(torch.randn(shape, generator=gen, device=dev) * 1e-3).to(dtype)
+             for shape, _, dtype, _, _ in kinds]
+    nbs = tuple(-(-g.numel() // 256) for g in grads)
+    layout = LeafLayout(tuple(k[4] for k in kinds), tuple(k[1] for k in kinds),
+                        tuple(k[3] for k in kinds), nbs)
+    return grads, adam8_state(gen, dev, 256 * sum(nbs)), layout
+
+
+def mixed_leaves(gen, dev):
+    """A tree of odd leaves: every tier (tile, with a partial column group;
+    strided; contiguous, ragged and aligned), both rounding orders, f32 and
+    bf16 gradients and an empty leaf."""
+    kinds = [((1024, 64), True, torch.float32, False), ((9,), False, torch.float32, True),
+             ((0,), False, torch.float32, True), ((70001,), False, torch.bfloat16, True),
+             ((40, 16), True, torch.float32, True), ((300, 256), False, torch.float32, False),
+             ((512, 40), True, torch.bfloat16, False), ((96, 40), True, torch.bfloat16, False),
+             ((4, 256), False, torch.bfloat16, True)]
+    return adam8_tree(gen, dev, [(*k, 3 * i + 1) for i, k in enumerate(kinds)])
+
+
+def path_leaves(gen, dev):
+    """K5's leaves on the training path: random f32 gradients at the shapes of
+    every parameter of the training path's t5-large (the fixture's
+    vocabulary) in leaf order, each in the order scale_by_adam_8bit("auto")
+    gives it on the card, with a mid-training state."""
+    from lako_tpu_torch.ops.adam8_kernel import LeafLayout
+    from lako_tpu_torch.train.optim8 import is_transposed, kernel_route, leaf_order
+
+    grads = path_grads(dev, SEED + 5, train_fixture()[0].vocab_size)
+    order = leaf_order(grads)
+    gs = [grads[p] for p in order]
+    layout = LeafLayout(tuple(range(len(order))),
+                        tuple(is_transposed(p, g) for p, g in zip(order, gs)),
+                        tuple(not kernel_route(g) for g in gs),
+                        tuple(-(-g.numel() // 256) for g in gs))
+    return gs, adam8_state(gen, dev, 256 * sum(layout.nbs)), layout
+
+
+def sass_report(build, nvcc_dir) -> None:
+    """The compiled K5's SASS (cuobjdump -sass of adam8.cu's object from the
+    ptxas report): its instructions, the quarter-rate ones, and per element
+    of a lane (the kernel inlines its row 8 times, 2 dtypes x 2 orders x 2
+    tiers, 8 elements a lane each)."""
+    tool = shutil.which("cuobjdump", path=str(nvcc_dir))
+    if tool is None:
+        log("  K5 SASS: cuobjdump not found beside nvcc; not counted")
+        return
+    text = subprocess.run([tool, "-sass", str(build.BUILD_DIR / "ptxas" / "adam8.cu.o")],
+                          capture_output=True, text=True, timeout=300).stdout
+    counts = sass_counts(text, "adam8_update_leaves_kernel")
+    if not counts:
+        raise AssertionError("cuobjdump -sass listed no adam8_update_leaves_kernel")
+    for fn, (n, slow) in counts.items():
+        log(f"  K5 SASS (cuobjdump -sass): {n} instructions, ~{n / 64:.0f} per element of a "
+            f"lane over its 8 inlined rows; quarter-rate {slow}")
+
+
+def check_adam8(dev, sm_mhz):
     from lako_tpu_torch.ops import adam8_kernel as k5
 
-    log("K5 fused_adam8_update and K6 adam8_ema_fragment (csrc/adam8.cu) vs plain:")
+    log("K5 fused_adam8_update(_leaves) and K6 adam8_ema_fragment (csrc/adam8.cu) vs plain:")
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     hyper = dict(b1=0.9, b2=0.999, eps=1e-6, stochastic_round=True, seed=0x8B17)
     leaves = [("t5-large shared embedding (32128,1024) g f32", (32128, 1024), torch.float32,
@@ -637,7 +763,7 @@ def check_adam8(dev):
               ("t5-large mlp/wi kernel (4096,1024) g f32, transposed", (4096, 1024),
                torch.float32, True),
               (f"micro {ADAM8_MICRO} g bf16", ADAM8_MICRO, torch.bfloat16, False)]
-    max_err, micro = 0.0, None
+    micro = None
     for label, shape, dtype, transposed in leaves:
         g = (torch.randn(shape, generator=gen, device=dev) * 1e-3).to(dtype)
         state = adam8_state(gen, dev, g.numel())
@@ -648,12 +774,18 @@ def check_adam8(dev):
                 got = k5.fused_adam8_update(*args, **kw)
                 torch.cuda.synchronize()
                 want = k5.fused_adam8_update_reference(*args, **kw)
-                err = compare_adam8(f"{label}, step {count}, correct_bias={correct}", got,
-                                    want, exact_u=not correct)
-                max_err = max(max_err, err)
+                compare_adam8(f"{label}, step {count}, correct_bias={correct}", got, want)
                 del got, want
         if shape == ADAM8_MICRO:
             micro = (g, state)
+    mixed = mixed_leaves(gen, dev)
+    for count in K5_DRAWS:
+        for correct in (False, True):
+            kw = dict(hyper, correct_bias=correct)
+            got = k5.fused_adam8_update_leaves(*mixed, count, **kw)
+            torch.cuda.synchronize()
+            compare_adam8_leaves(f"mixed tree, step {count}, correct_bias={correct}", mixed[2],
+                                 got, k5.fused_adam8_update_leaves_reference(*mixed, count, **kw))
     g, state = micro
     kw = dict(hyper, correct_bias=False, leaf_salt=7)
     u = k5.adam8_ema_fragment(g, *state)
@@ -673,20 +805,50 @@ def check_adam8(dev):
 
     k5_ms = device_ms(k5_call)
     k6_ms = device_ms(k6_call)
-    k5_plain = event_ms(lambda: k5.fused_adam8_update_reference(g, *state, 3, **kw))
     k6_plain = event_ms(lambda: k5.adam8_ema_fragment_reference(g, *state))
     k5_ms = (k5_ms + device_ms(k5_call)) / 2
     k6_ms = (k6_ms + device_ms(k6_call)) / 2
-    log(f"  time at {ADAM8_MICRO}: K5 {k5_ms:.4f} ms (plain {k5_plain:.4f} ms), K6 "
-        f"{k6_ms:.4f} ms (plain {k6_plain:.4f} ms) (kernels: CUDA graph of 20 calls; plain "
-        f"versions: CUDA events around 5 calls)")
     n = g.numel()
     out5 = k5_call()
-    k5_bytes = nbytes(g, *state) + nbytes(*out5)
+    micro_bytes = nbytes(g, *state) + nbytes(*out5)
+    micro_bound, micro_by, detail = k5_bound(micro_bytes, n, sm_mhz)
+    log(f"  time at {ADAM8_MICRO} g bf16 (one leaf): K5 {k5_ms:.4f} ms, {k5_ms / micro_bound:.2f}x "
+        f"its bound {micro_bound:.4f} ms by {micro_by} ({detail}); K6 {k6_ms:.4f} ms (plain "
+        f"{k6_plain:.4f} ms) (CUDA graph of 20 calls)")
     k6_bytes = nbytes(g, *state) + nbytes(u)
-    return [entry("fused_adam8_update", "lako_tpu_torch/csrc/adam8.cu",
-                  "lako_tpu/ops/adam8_kernel.py:147", max_err, k5_ms, k5_plain, k5_bytes,
-                  K5_OPS * n, "f32", None),
+    del micro, g, state, u, u_plain, out5
+
+    path = path_leaves(gen, dev)
+    grads, state, layout = path
+    elements = sum(g.numel() for g in grads)
+    max_err = 0.0
+    for correct in (False, True):
+        kw = dict(hyper, correct_bias=correct)
+        got = k5.fused_adam8_update_leaves(*path, 3, **kw)
+        torch.cuda.synchronize()
+        want = k5.fused_adam8_update_leaves_reference(*path, 3, **kw)
+        compare_adam8_leaves(f"the training path's {len(grads)} leaves ({elements / 1e6:.1f}M "
+                             f"elements, g f32), correct_bias={correct}", layout, got, want)
+        max_err = max(max_err, *(float((a.float() - b.float()).abs().max())
+                                 for a, b in zip(got[0], want[0]) if a.numel()))
+        del got, want
+    kw = dict(hyper, correct_bias=False)
+    kern = device_ms(lambda: k5.fused_adam8_update_leaves(*path, 3, **kw), calls=5, replays=4)
+    plain = event_ms(lambda: k5.fused_adam8_update_leaves_reference(*path, 3, **kw), calls=1)
+    kern = (kern + device_ms(lambda: k5.fused_adam8_update_leaves(*path, 3, **kw), calls=5,
+                             replays=4)) / 2
+    us, flat = k5.fused_adam8_update_leaves(*path, 3, **kw)
+    path_bytes = nbytes(*grads, *state, *us, *flat)
+    bound_ms, bound_by, detail = k5_bound(path_bytes, elements, sm_mhz)
+    log(f"  time over the path's {len(grads)} leaves (one launch): K5 {kern:.4f} ms "
+        f"({path_bytes / kern / 1e6:.0f} GB/s achieved, {path_bytes / 1e9:.3f} GB), "
+        f"{kern / bound_ms:.2f}x its bound {bound_ms:.4f} ms by {bound_by} ({detail}); plain "
+        f"{plain:.1f} ms (device time per call: CUDA graph of 5 calls; plain: CUDA events "
+        f"around 1 call)")
+    del path, grads, state, us, flat
+    return [entry("fused_adam8_update_leaves", "lako_tpu_torch/csrc/adam8.cu",
+                  "lako_tpu/ops/adam8_kernel.py:147", max_err, kern, plain, path_bytes,
+                  elements, "k5", None, bound_ms, bound_by),
             entry("adam8_ema_fragment", "lako_tpu_torch/csrc/adam8.cu",
                   "scripts/bench_adam8_micro.py:105", k6_err, k6_ms, k6_plain, k6_bytes,
                   K6_OPS * n, "f32", None)]
@@ -758,6 +920,7 @@ def counters():
             "streamed_attention_bwd_drel": k1.streamed_attention_bwd_drel,
             "fused_decode_cross_attention": k3.fused_decode_cross_attention,
             "fused_attention": k4.fused_attention,
+            "fused_adam8_update_leaves": k5.fused_adam8_update_leaves,
             "fused_adam8_update": k5.fused_adam8_update,
             "adam8_ema_fragment": k5.adam8_ema_fragment}
 
@@ -1056,44 +1219,64 @@ def check_train_step(dev, tok, batch, route):
 
 
 def check_adam8_step(dev, grads):
-    """Two AdamW8bit moment updates of every t5-large parameter tensor from
-    the same gradients, K5 (the transform's CUDA route) against its plain
-    version leaf by leaf: u, codes and scales bitwise equal."""
-    from lako_tpu_torch.ops.adam8_kernel import fused_adam8_update_reference
-    from lako_tpu_torch.train.optim8 import is_transposed, leaf_order, scale_by_adam_8bit
+    """AdamW8bit moment updates of every t5-large parameter tensor from the
+    same gradients: scale_by_adam_8bit("auto") on the card, one K5 launch an
+    update, against the plain per-leaf versions in the same routing (the
+    kernel's order for the leaves the JAX package sends to its kernel, the
+    jnp order for the rest): u, codes and scales bitwise, both bias
+    corrections. Then one update's device time (CUDA graph) and wall time
+    (host clock, synchronized), warmed."""
+    from lako_tpu_torch.ops.adam8_kernel import LeafLayout, fused_adam8_update_leaves_reference
+    from lako_tpu_torch.train.optim8 import (
+        is_transposed,
+        kernel_route,
+        leaf_order,
+        scale_by_adam_8bit,
+    )
 
-    hyper = dict(b1=0.9, b2=0.999, eps=1e-6, correct_bias=False, stochastic_round=True,
-                 seed=0x8B17)
-    tx = scale_by_adam_8bit(**{k: v for k, v in hyper.items() if k != "seed"})
-    state = tx.init(grads)
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-6, stochastic_round=True, seed=0x8B17)
     order = leaf_order(grads)
-    for count in (1, 2):
-        reset_counts()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        u, new = tx.update(grads, state)
-        end.record()
+    n = sum(g.numel() for g in grads.values())
+    jnp = sum(not kernel_route(grads[p]) for p in order)
+    for correct in (False, True):
+        tx = scale_by_adam_8bit(correct_bias=correct)
+        state = tx.init(grads)
+        for count in (1, 2):
+            reset_counts()
+            u, new = tx.update(grads, state)
+            torch.cuda.synchronize()
+            launched = read_counts()["fused_adam8_update_leaves"]
+            same = 0
+            for i, path in enumerate(order):
+                g, mu, nu = grads[path], state.mu[path], state.nu[path]
+                layout = LeafLayout((i,), (is_transposed(path, g),), (not kernel_route(g),),
+                                    (mu.q.shape[0],))
+                (w,), flat = fused_adam8_update_leaves_reference(
+                    [g], (mu.q, mu.scale, nu.q, nu.scale), layout, count, correct_bias=correct,
+                    **hyper)
+                got = (u[path], new.mu[path].q, new.mu[path].scale, new.nu[path].q,
+                       new.nu[path].scale)
+                same += all(torch.equal(a, b) for a, b in zip(got, (w, *flat)))
+            log(f"  AdamW8bit update {count}, correct_bias={correct}, of {len(order)} tensors "
+                f"({n / 1e6:.1f}M elements; {len(order) - jnp} in the kernel's order, {jnp} in "
+                f"the jnp order): K5 launched {launched} time(s); {same}/{len(order)} tensors "
+                f"bitwise equal to the plain version (u, codes, scales)")
+            if launched != 1 or same != len(order):
+                raise AssertionError("the AdamW8bit update disagrees with its plain version")
+            state = new
+    del u, new
+    device = device_ms(lambda: tx.update(grads, state), calls=5, replays=4)
+    walls = []
+    for _ in range(5):
         torch.cuda.synchronize()
-        launched = read_counts()["fused_adam8_update"]
-        same = 0
-        for i, path in enumerate(order):
-            g = grads[path]
-            want = fused_adam8_update_reference(
-                g, state.mu[path].q, state.mu[path].scale, state.nu[path].q,
-                state.nu[path].scale, count, leaf_salt=i, transposed=is_transposed(path, g),
-                **hyper)
-            got = (u[path], new.mu[path].q, new.mu[path].scale, new.nu[path].q,
-                   new.nu[path].scale)
-            same += all(torch.equal(a, b) for a, b in zip(got, want))
-        n = sum(g.numel() for g in grads.values())
-        log(f"  AdamW8bit update {count} of {len(order)} tensors ({n / 1e6:.1f}M elements): "
-            f"K5 launched {launched} times in {start.elapsed_time(end):.2f} ms (CUDA events "
-            f"around the update, host issue included); {same}/{len(order)} tensors bitwise "
-            f"equal to the plain version (u, codes, scales)")
-        if launched != len(order) or same != len(order):
-            raise AssertionError("the AdamW8bit update disagrees with its plain version")
-        state = new
-    q8 = sum(nbytes(m.q, m.scale) for m in (*state.mu.values(), *state.nu.values()))
+        t0 = time.perf_counter()
+        tx.update(grads, state)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"  one AdamW8bit update of the {len(order)} tensors: device {device:.4f} ms (CUDA graph "
+        f"of 5 updates), wall {sorted(walls)[2]:.2f} ms (median of 5, host clock around the "
+        f"update and a synchronize; all {', '.join(f'{w:.2f}' for w in walls)})")
+    q8 = nbytes(state.mu.q, state.mu.scale, state.nu.q, state.nu.scale)
     log(f"  8-bit moment state {q8 / 1e9:.3f} GB against {8 * n / 1e9:.3f} GB of float32 "
         f"moments (counted from the tensors)")
 
@@ -1121,7 +1304,7 @@ def run_train_reader(dev, cfg, tok, train, evals, route):
     attention = "streamed_attention" if route == "streamed" else "fused_attention"
     expected[attention] += t5.num_layers * eval_batches
     if cfg.optim.optim == "adamw8bit":
-        expected["fused_adam8_update"] = len(result.state.params) * steps
+        expected["fused_adam8_update_leaves"] = steps   # one launch over every tensor
     log(f"  {steps} steps and {len(result.history)} evals in {seconds:.1f} s; history "
         f"{[{k: round(v, 4) for k, v in h.items()} for h in result.history]}")
     check_counts(f"train_reader ({route} route, {cfg.optim.optim})", launches, expected)
@@ -1215,7 +1398,7 @@ LAUNCHES_FROM = {"streamed_attention": ("training", "streamed"),
                  "streamed_attention_bwd_drel": ("training", "streamed"),
                  "fused_decode_cross_attention": ("serving", "streamed"),
                  "fused_attention": ("training", "fused"),
-                 "fused_adam8_update": ("training", "fused"),
+                 "fused_adam8_update_leaves": ("training", "fused"),
                  "adam8_ema_fragment": ("floor_proof", "micro")}
 
 
@@ -1236,14 +1419,21 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}, "
         f"count {torch.cuda.device_count()}")
 
+    sm_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                   "--format=csv,noheader,nounits"], capture_output=True,
+                                  text=True, check=True, timeout=60).stdout.split()[0])
+    log(f"SM clock, maximum: {sm_mhz:.0f} MHz (nvidia-smi clocks.max.sm)")
+
     t0 = time.perf_counter()
     ptxas = start_ptxas(_build)
     _build.load_library()
     log(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
-    ptxas_report(ptxas, Path(_build.find_nvcc()).parent)
+    nvcc_dir = Path(_build.find_nvcc()).parent
+    ptxas_report(ptxas, nvcc_dir)
+    sass_report(_build, nvcc_dir)
 
     kernels = [check_streamed(dev), *check_streamed_bwd(dev), check_decode_cross(dev),
-               check_fused(dev), *check_adam8(dev)]
+               check_fused(dev), *check_adam8(dev, sm_mhz)]
     check_streamed_long(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1253,7 +1443,7 @@ def main() -> int:
     runs["serving"] = run_slice(dev)            # K1 or K4, and K3
     gc.collect()
     torch.cuda.empty_cache()
-    runs["training"] = run_training(dev)        # K1 + K2a/K2b/K2c, or K4 + K5
+    runs["training"] = run_training(dev)        # K1 + K2a/K2b/K2c, or K4 + K5 (once a step)
     for entry_ in kernels:
         phase, route = LAUNCHES_FROM[entry_["name"]]
         entry_["launches"] = runs[phase][route][entry_["name"]]

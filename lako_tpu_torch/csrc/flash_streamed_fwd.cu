@@ -442,13 +442,9 @@ int launch_fma(const void* q, const void* k, const void* v, const void* rel,
                int Lk, cudaStream_t s) {
   auto kernel = streamed_fwd_fma_kernel<D>;
   constexpr size_t smem = fma_smem_bytes<D>();
-  static bool configured = false;  // once, so later launches can be graph-captured
-  if (!configured) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  static bool configured[lako::kMaxDevices] = {};
+  const cudaError_t err = lako::configure_smem(kernel, (int)smem, configured);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((L + TQ - 1) / TQ, H, B);
   kernel<<<grid, FMA_THREADS, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
@@ -465,13 +461,9 @@ int launch_mma(const void* q, const void* k, const void* v, const void* rel,
                const void* key_mask, void* out, void* stats, int B, int H, int L,
                int Lk, cudaStream_t s) {
   auto kernel = streamed_fwd_mma_kernel<D>;
-  static bool configured = false;  // once, so later launches can be graph-captured
-  if (!configured) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  static bool configured[lako::kMaxDevices] = {};
+  const cudaError_t err = lako::configure_smem(kernel, SMEM_LIMIT, configured);
+  if (err != cudaSuccess) return (int)err;
   const int row_tiles = (L + 15) / 16;
   int warps = min(row_tiles, mma_max_warps<D>());
   const int blocks = (row_tiles + warps - 1) / warps;

@@ -720,13 +720,9 @@ int launch_mma_tier(const void* q, const void* k, const void* v, const void* bia
                     int B, int H, int L, int Lk, int sb, int sh, int si, int sj,
                     cudaStream_t stream) {
   auto kernel = fused_attention_mma_kernel<D, BT, kRegLogits>;
-  static bool configured = false;  // once, so later launches can be graph-captured
-  if (!configured) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  static bool configured[lako::kMaxDevices] = {};
+  const cudaError_t err = lako::configure_smem(kernel, SMEM_LIMIT, configured);
+  if (err != cudaSuccess) return (int)err;
   const int lkp = (Lk + 15) & ~15;
   const int row_tiles = (L + 15) / 16;
   const size_t kv = (size_t)lkp * (D + PAD) * sizeof(bf16);

@@ -37,6 +37,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _library = []   # the loaded CDLL, once built
+# host buffers that captured CUDA graphs read at each replay, by the hold
+# (csrc/common.cu lako_graph_hold) that says when their graph is gone
+_graph_buffers: dict = {}
 
 
 def find_nvcc():
@@ -149,3 +152,22 @@ def check_launch(code: int, what: str) -> None:
 
 def stream_of(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def release_graph_buffers() -> None:
+    """Drop the host buffers of :func:`keep_for_graph` whose graphs are gone."""
+    if _graph_buffers:
+        lib = load_library()
+        for hold in [h for h in _graph_buffers if lib.lako_graph_released(ctypes.c_void_p(h))]:
+            del _graph_buffers[hold]
+
+
+def keep_for_graph(buffer: torch.Tensor, stream) -> None:
+    """Keep ``buffer``, the host source of a copy that ``stream`` is
+    capturing into a CUDA graph, as long as that graph or an executable
+    graph made from it exists."""
+    release_graph_buffers()
+    hold = ctypes.c_void_p()
+    code = load_library().lako_graph_hold(ctypes.byref(hold), ctypes.c_void_p(stream))
+    check_launch(code, "keep_for_graph")
+    _graph_buffers[hold.value] = buffer

@@ -16,8 +16,9 @@ import torch
 
 from lako_tpu_torch.ops import _build
 
-# one warp per 16 output rows, at most 16 warps a block
-MAX_HEAD_DIM = 256
+# 16 warps of 32 keys' lanes, each over up to 3 groups of 16 output rows;
+# shared memory holds a one-stage ring of int8 K/V tiles up to here
+MAX_HEAD_DIM = 768
 
 
 def reference(q, k_i8, k_scale, v_i8, v_scale, bias):

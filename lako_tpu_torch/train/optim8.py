@@ -10,14 +10,22 @@ track in expectation instead of freezing on the lattice. State: 2 bytes per
 parameter plus 8 bytes per block, against 8 bytes for float32 AdamW.
 
 ``scale_by_adam_8bit`` takes the place of Adam in ``make_optimizer``'s chain
-for ``optim="adamw8bit"``. ``use_kernel``: "auto" sends CUDA tensors through
-the one-pass kernel K5 (ops/adam8_kernel.py) and CPU tensors through the
-formulation below, as the JAX package sends TPU arrays to its Pallas kernel
-and others to its jnp path; "never" always takes this module's path;
-"always" always takes K5's wrapper (its plain version on the CPU). The two
-paths differ in evaluation order exactly where the JAX package's do:
-``(1-b2)*g*g`` and ``1 - exp(c*log(b))`` in the kernel against
-``(1-b2)*square(g)`` and ``1 - b**c`` here.
+for ``optim="adamw8bit"``. ``use_kernel`` routes each leaf as the JAX package
+does: "auto" sends CUDA tensors through the one-pass kernel K5
+(ops/adam8_kernel.py, one launch over every leaf), each leaf in the rounding
+order the JAX package gives it on its accelerator (the Pallas kernel's for a
+leaf whose size is a multiple of 256 and at least 65536, :func:`kernel_route`,
+the jnp formulation's otherwise), and CPU tensors through the jnp
+formulation below, as the JAX transform does on the CPU; "never" always
+takes the jnp formulation; "always" always takes K5's wrapper in the kernel's
+order (its plain version on the CPU). The two orders differ where the JAX
+package's paths do: ``(1-b2)*g*g`` and ``1 - exp(c*log(b))`` in the kernel
+against ``(1-b2)*square(g)`` and ``1 - b**c`` here.
+
+The state of all leaves lives in four flat buffers (codes and scales of both
+moments, the leaves' rows stacked in ``leaf_order``); each leaf's ``Moment8``
+is a view of its rows. An update writes four new buffers and leaves the old
+state as it was, as the JAX transform does.
 
 Two things keep the port's state the JAX package's, element for element:
 
@@ -32,8 +40,10 @@ Two things keep the port's state the JAX package's, element for element:
 
 from __future__ import annotations
 
+import itertools
 import struct
-from typing import Dict, NamedTuple
+from collections.abc import Mapping
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -81,10 +91,29 @@ class Moment8(NamedTuple):
     scale: torch.Tensor
 
 
+class FlatMoments(Mapping):
+    """One moment of every leaf, in one flat state: ``q`` (NB, block) and
+    ``scale`` (NB, 1) with the leaves' rows stacked; maps each path to its
+    Moment8, a view of its rows ``rows[path] = (row0, nb)``, made when read."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor, rows: Dict[str, Tuple[int, int]]):
+        self.q, self.scale, self.rows = q, scale, rows
+
+    def __getitem__(self, path: str) -> Moment8:
+        row0, nb = self.rows[path]
+        return Moment8(self.q[row0:row0 + nb], self.scale[row0:row0 + nb])
+
+    def __iter__(self):
+        return iter(self.rows)
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+
 class ScaleByAdam8State(NamedTuple):
     count: int
-    mu: Dict[str, Moment8]   # int8, signed
-    nu: Dict[str, Moment8]   # uint8, log code
+    mu: Mapping[str, Moment8]   # int8, signed
+    nu: Mapping[str, Moment8]   # uint8, log code
 
 
 def is_transposed(path: str, x: torch.Tensor) -> bool:
@@ -130,6 +159,30 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
 def salt_hash(count: int, salt: int) -> int:
     """The step's and salt's part of the dither hash, mod 2**32."""
     return ((count * 0x9E3779B9) ^ (salt * 0x85EBCA6B)) & _MASK32
+
+
+def bias_corrections(count: int, b1: float, b2: float, order: str) -> tuple:
+    """``(1 - b1**count, 1 - b2**count)`` as float32 values, computed on the
+    host in one of the JAX package's two orders: "kernel" (its Pallas body)
+    ``1 - exp(c * log(b))``, "jnp" ``1 - b ** c``."""
+    c = torch.full((), float(count))
+
+    def corr(b):
+        bt = torch.full((), f32(b))
+        if order == "kernel":
+            return (1.0 - torch.exp(c * torch.log(bt))).item()
+        if order == "jnp":
+            return (1 - bt ** c).item()
+        raise ValueError(order)
+
+    return corr(b1), corr(b2)
+
+
+def kernel_route(g: torch.Tensor) -> bool:
+    """True for a leaf that the JAX package's "auto" sends to its Pallas
+    kernel on its accelerator: a size that is a multiple of 256, and at
+    least 65536."""
+    return g.numel() % 256 == 0 and g.numel() >= 65536
 
 
 def _dither_from_idx(idx: torch.Tensor, count: int, salt: int) -> torch.Tensor:
@@ -212,10 +265,9 @@ def _adam8_plain(g, mq: Moment8, vq: Moment8, count: int, i: int, *, b1, b2, eps
     m = fma32(f32(1 - b1), g2d, f32(b1) * _dequant(mq))
     v = fma32(f32(1 - b2), torch.square(g2d), f32(b2) * _dequant(vq))
     if correct_bias:
-        c = torch.full((), float(count), device=g.device)
-        m_hat = m / (1 - torch.full((), f32(b1), device=g.device) ** c)
-        v_hat = v / (1 - torch.full((), f32(b2), device=g.device) ** c)
-        u = m_hat / (sqrt32(v_hat) + f32(eps))
+        corr1, corr2 = (torch.full((), c, device=g.device)
+                        for c in bias_corrections(count, b1, b2, "jnp"))
+        u = (m / corr1) / (sqrt32(v / corr2) + f32(eps))
     else:
         u = m / (sqrt32(v) + f32(eps))
     k_m = k_v = None
@@ -226,50 +278,78 @@ def _adam8_plain(g, mq: Moment8, vq: Moment8, count: int, i: int, *, b1, b2, eps
     return u, _quant_signed(m, k_m), _quant_unsigned(v, k_v)
 
 
+def _on_card(updates) -> bool:
+    return any(g.is_cuda for g in updates.values())
+
+
 def scale_by_adam_8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
                        block: int = 256, correct_bias: bool = False,
                        stochastic_round: bool = True, seed: int = 0x8B17,
                        use_kernel: str = "auto") -> GradientTransformation:
     """Adam scaling with int8/uint8 blockwise moments; ``correct_bias`` True
     is torch's Adam, False HF's AdamW (raw moments), as in train/optim.py.
-    The kernel K5 takes blocks of 256 (one warp a block)."""
+    The kernel K5 takes blocks of 256 (one warp a block). The state's
+    moments are FlatMoments: one flat buffer per moment for all leaves."""
     if use_kernel not in ("auto", "never", "always"):
         raise ValueError(use_kernel)
     if use_kernel != "never" and block != 256:
         raise ValueError(f"the 8-bit Adam kernel takes blocks of 256, got {block}")
     hyper = dict(b1=b1, b2=b2, eps=eps, correct_bias=correct_bias,
                  stochastic_round=stochastic_round, seed=seed)
+    layouts = {}   # (keys, shapes, plain) -> (paths, LeafLayout, rows)
+
+    def layout_of(updates, plain: bool):
+        """The leaves' order, K5's layout and each path's rows, once per tree."""
+        from lako_tpu_torch.ops.adam8_kernel import LeafLayout
+
+        key = (tuple(updates), tuple(g.shape for g in updates.values()), plain)
+        if key not in layouts:
+            paths = leaf_order(updates)
+            gs = [updates[p] for p in paths]
+            nbs = tuple(-(-g.numel() // block) for g in gs)
+            layout = LeafLayout(tuple(range(len(paths))),
+                                tuple(is_transposed(p, g) for p, g in zip(paths, gs)),
+                                tuple(plain or (use_kernel == "auto" and not kernel_route(g))
+                                      for g in gs), nbs)
+            rows = dict(zip(paths, zip(itertools.accumulate(nbs, initial=0), nbs)))
+            rows = {k: rows[k] for k in updates}   # the caller's key order
+            layouts[key] = (paths, layout, rows)
+        return layouts[key]
 
     def init(params):
-        mu, nu = {}, {}
-        for path, p in params.items():
-            nb = -(-p.numel() // block)
-            scale = torch.ones(nb, 1, dtype=torch.float32, device=p.device)
-            mu[path] = Moment8(torch.zeros(nb, block, dtype=torch.int8, device=p.device), scale)
-            # log code: 255 is the reserved exact-zero symbol
-            nu[path] = Moment8(torch.full((nb, block), 255, dtype=torch.uint8, device=p.device),
-                               scale.clone())
-        return ScaleByAdam8State(0, mu, nu)
+        devices = {p.device for p in params.values()}
+        if len(devices) > 1:
+            raise ValueError(f"the 8-bit Adam state lies on one device, got {devices}")
+        device = devices.pop() if devices else None
+        _, layout, rows = layout_of(params, plain=False)
+        nb = sum(layout.nbs)
+        # log code: 255 is the reserved exact-zero symbol
+        scale = torch.ones(nb, 1, dtype=torch.float32, device=device)
+        return ScaleByAdam8State(
+            0, FlatMoments(torch.zeros(nb, block, dtype=torch.int8, device=device), scale, rows),
+            FlatMoments(torch.full((nb, block), 255, dtype=torch.uint8, device=device),
+                        scale.clone(), rows))
 
     def update(updates, state: ScaleByAdam8State, params=None):
-        from lako_tpu_torch.ops.adam8_kernel import fused_adam8_update
+        from lako_tpu_torch.ops.adam8_kernel import (
+            fused_adam8_update_leaves,
+            fused_adam8_update_leaves_reference,
+        )
 
         count = state.count + 1
-        out_u, mu, nu = {}, {}, {}
-        for i, path in enumerate(leaf_order(updates)):
-            g, mq, vq = updates[path], state.mu[path], state.nu[path]
-            transposed = is_transposed(path, g)
-            if use_kernel == "always" or (use_kernel == "auto" and g.is_cuda):
-                u, nmq, nms, nvq, nvs = fused_adam8_update(
-                    g.contiguous(), mq.q, mq.scale, vq.q, vq.scale, count, leaf_salt=i,
-                    transposed=transposed, **hyper)
-                out_u[path], mu[path], nu[path] = u, Moment8(nmq, nms), Moment8(nvq, nvs)
-            else:
-                out_u[path], mu[path], nu[path] = _adam8_plain(
-                    g, mq, vq, count, i, transposed=transposed, **hyper)
+        if not updates:
+            return {}, ScaleByAdam8State(count, {}, {})
+        plain = use_kernel == "never" or (use_kernel == "auto" and not _on_card(updates))
+        paths, layout, rows = layout_of(updates, plain)
+        if not all(isinstance(m, FlatMoments) and m.rows == rows for m in (state.mu, state.nu)):
+            raise ValueError("the 8-bit state was not made by this transform for these leaves")
+        grads = [updates[p].contiguous() for p in paths]
+        flat = (state.mu.q, state.mu.scale, state.nu.q, state.nu.scale)
+        run = fused_adam8_update_leaves_reference if plain else fused_adam8_update_leaves
+        us, (mq, ms, vq, vs) = run(grads, flat, layout, count, **hyper)
+        out_u = dict(zip(paths, us))
         return ({k: out_u[k] for k in updates},
-                ScaleByAdam8State(count, {k: mu[k] for k in updates},
-                                  {k: nu[k] for k in updates}))
+                ScaleByAdam8State(count, FlatMoments(mq, ms, rows), FlatMoments(vq, vs, rows)))
 
     return GradientTransformation(init, update)
 

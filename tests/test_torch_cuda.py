@@ -7,6 +7,8 @@ conftest (which sets JAX up):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -255,6 +257,39 @@ def test_train_step_kernels_against_plain(cuda_device):
         assert float((a - b).norm()) <= 1e-4 * float(b.norm()) + 1e-12
 
 
+def _decode_cross_f64(q, k_i8, k_scale, v_i8, v_scale, bias):
+    """K3's function in float64: the exact result to within float32's
+    rounding."""
+    kf = k_i8.double() * k_scale.double()[..., None]
+    vf = v_i8.double() * v_scale.double()[..., None]
+    p = torch.softmax(torch.einsum("bhd,bhdk->bhk", q.double(), kf) + bias.double(), dim=-1)
+    return torch.einsum("bhk,bhdk->bhd", p, vf)
+
+
+# past 16 warps of 16 rows: two row groups a warp and two ring stages at
+# d = 320, one stage at 512, three groups at 768
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [37, 260, 3000])
+@pytest.mark.parametrize("B,d", [(1, 320), (8, 320), (1, 512), (8, 512), (2, 768)])
+def test_decode_cross_kernel_wide_heads(cuda_device, B, d, K, q_dtype):
+    """K3 at head dims above 256, bitwise the same in a second launch. Its
+    logits grow as sqrt(d) and their float32 sums round by ~3e-5 at d = 512
+    in any order, so the kernel and its plain version (float32) are each
+    held to the float64 result: the kernel within 1e-5 plus twice the plain
+    version's own error."""
+    args = _int8_cross_inputs(B, K, q_dtype, cuda_device, h=4, d=d)
+    before = k3.fused_decode_cross_attention.launches
+    out = k3.fused_decode_cross_attention(*args)
+    again = k3.fused_decode_cross_attention(*args)
+    torch.cuda.synchronize()
+    assert k3.fused_decode_cross_attention.launches == before + 2
+    assert torch.equal(out, again)
+    exact = _decode_cross_f64(*args)
+    err = float((out.double() - exact).abs().max())
+    plain_err = float((k3.reference(*args).double() - exact).abs().max())
+    assert err <= 1e-5 + 2 * plain_err, (err, plain_err)
+
+
 @pytest.mark.parametrize("B,K", [(8, 260), (3, 37), (128, 260)])
 def test_decode_cross_kernel_matches_plain(cuda_device, B, K):
     gen = torch.Generator(device=cuda_device).manual_seed(1)
@@ -459,18 +494,21 @@ def _adam8_inputs(nb, dev, g_dtype, seed=0):
             to((np.abs(rng.normal(size=(nb, 1))) * 1e-6).astype(np.float32)))
 
 
+# the tiers: contiguous (ragged and aligned), tile (out % 256 == 0; a partial
+# column group at in = 40, bf16 at 64), strided (out = 96)
 @pytest.mark.parametrize("correct_bias", [False, True])
 @pytest.mark.parametrize("n,shape,transposed,g_dtype", [
     (1000, (1000,), False, torch.float32),
     (4096 * 64, (4096, 64), True, torch.float32),
     (96 * 40, (96, 40), True, torch.bfloat16),
     (256 * 37, (37, 256), False, torch.bfloat16),
+    (512 * 40, (512, 40), True, torch.float32),
+    (256 * 64, (256, 64), True, torch.bfloat16),
 ])
 def test_adam8_kernel_bitwise_matches_plain(cuda_device, n, shape, transposed, g_dtype,
                                             correct_bias):
-    """K5 against its plain version on the card, steps 1 and 7: codes and
-    scales bitwise equal; u bitwise without the bias correction, within
-    rtol 2e-6 with it (expf and logf may differ by ulps)."""
+    """K5 against its plain version on the card, steps 1 and 7: codes,
+    scales and u bitwise equal (the bias corrections come from the host)."""
     nb = -(-n // 256)
     g, mq, ms, vq, vs = _adam8_inputs(nb, cuda_device, g_dtype)
     g = g.reshape(-1)[:n].reshape(shape).contiguous()
@@ -483,11 +521,7 @@ def test_adam8_kernel_bitwise_matches_plain(cuda_device, n, shape, transposed, g
         assert k5.fused_adam8_update.launches == before + 1
         want = k5.fused_adam8_update_reference(g, mq, ms, vq, vs, count, **hyper)
         assert got[0].shape == g.shape and got[0].dtype == g.dtype
-        if correct_bias:
-            torch.testing.assert_close(got[0].float(), want[0].float(), rtol=2e-6, atol=0)
-        else:
-            assert torch.equal(got[0], want[0])
-        for a, b in zip(got[1:], want[1:]):
+        for a, b in zip(got, want):
             assert torch.equal(a, b)
 
 
@@ -500,9 +534,123 @@ def test_adam8_ema_fragment_bitwise_matches_plain(cuda_device):
     assert torch.equal(got, k5.adam8_ema_fragment_reference(g, mq, ms, vq, vs))
 
 
+def _adam8_tree(dev, seed=0):
+    """Leaves of every tier and both orders, f32 and bf16 gradients in one
+    update, with a mid-training flat state: (grads, state, layout)."""
+    kinds = [((1024, 64), True, torch.float32, False),     # tile
+             ((9,), False, torch.float32, True),           # small, jnp order
+             ((0,), False, torch.float32, True),           # empty
+             ((70001,), False, torch.bfloat16, True),      # ragged, bf16
+             ((40, 16), True, torch.float32, True),        # out % 256 != 0: strided
+             ((300, 256), False, torch.float32, False),    # contiguous, aligned
+             ((512, 40), True, torch.bfloat16, False),     # tile, partial column group
+             ((96, 40), True, torch.bfloat16, False),      # strided, bf16
+             ((4, 256), False, torch.bfloat16, True)]
+    rng = np.random.default_rng(seed)
+    grads = [torch.from_numpy((rng.normal(size=shape) * 1e-3).astype(np.float32)).to(dev, dtype)
+             for shape, _, dtype, _ in kinds]
+    nbs = tuple(-(-g.numel() // 256) for g in grads)
+    _, mq, ms, vq, vs = _adam8_inputs(sum(nbs), dev, torch.float32, seed=seed + 1)
+    layout = k5.LeafLayout(tuple(3 * i + 1 for i in range(len(kinds))),
+                           tuple(k[1] for k in kinds), tuple(k[3] for k in kinds), nbs)
+    return grads, (mq, ms, vq, vs), layout
+
+
+@pytest.mark.parametrize("correct_bias", [False, True])
+def test_adam8_leaves_kernel_bitwise_matches_plain(cuda_device, correct_bias):
+    """K5 over a tree of mixed leaves in one launch (every tier, both rounding
+    orders, f32 and bf16 gradients, an empty leaf), steps 1 and 7: u of every
+    leaf and the flat new state bitwise equal to the plain per-leaf
+    versions; the old state untouched."""
+    grads, state, layout = _adam8_tree(cuda_device)
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-6, correct_bias=correct_bias,
+                 stochastic_round=True, seed=0x8B17)
+    old = [t.clone() for t in state]
+    for count in (1, 7):
+        before = k5.fused_adam8_update_leaves.launches
+        us, flat = k5.fused_adam8_update_leaves(grads, state, layout, count, **hyper)
+        torch.cuda.synchronize()
+        assert k5.fused_adam8_update_leaves.launches == before + 1
+        want_us, want_flat = k5.fused_adam8_update_leaves_reference(grads, state, layout, count,
+                                                                    **hyper)
+        for g, u, w in zip(grads, us, want_us):
+            assert u.shape == g.shape and u.dtype == g.dtype
+            assert torch.equal(u, w)
+        for a, b in zip(flat, want_flat):
+            assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(old, state))
+
+
+def test_adam8_leaves_kernel_in_a_cuda_graph(cuda_device):
+    """K5 over the mixed tree captured in a CUDA graph: each replay copies
+    the descriptor table from the pinned buffer the capture kept and gives
+    the eager launch's bits; once the graph is gone the buffer is freed."""
+    from lako_tpu_torch.ops import _build
+
+    grads, state, layout = _adam8_tree(cuda_device)
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-6, correct_bias=True, stochastic_round=True,
+                 seed=0x8B17)
+    want_us, want_flat = k5.fused_adam8_update_leaves(grads, state, layout, 3, **hyper)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        held = len(_build._graph_buffers)
+        with torch.cuda.graph(graph, stream=stream):
+            us, flat = k5.fused_adam8_update_leaves(grads, state, layout, 3, **hyper)
+        assert len(_build._graph_buffers) == held + 1
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(2):
+        for t in (*us, *flat):
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(us, want_us))
+        assert all(torch.equal(a, b) for a, b in zip(flat, want_flat))
+    del graph, us, flat
+    torch.cuda.synchronize()
+    for _ in range(100):      # the graph's user object is released asynchronously
+        _build.release_graph_buffers()
+        if len(_build._graph_buffers) == held:
+            break
+        time.sleep(0.01)
+    assert len(_build._graph_buffers) == held
+
+
+def test_adam8_transform_launches_k5_once(cuda_device):
+    """scale_by_adam_8bit("auto") on the card: one K5 launch an update over
+    every leaf, each leaf bitwise equal to its plain version in the order
+    the JAX package's rule gives it."""
+    from lako_tpu_torch.train import optim8
+
+    rng = np.random.default_rng(2)
+    shapes = {"a/kernel": (1024, 64), "b": (9,), "c/kernel": (40, 16), "d": (300, 256)}
+    grads = {k: torch.from_numpy((rng.normal(size=s) * 1e-3).astype(np.float32)).to(cuda_device)
+             for k, s in shapes.items()}
+    tx = optim8.scale_by_adam_8bit()
+    state = tx.init(grads)
+    for count in (1, 2):
+        before = k5.fused_adam8_update_leaves.launches
+        u, new = tx.update(grads, state)
+        torch.cuda.synchronize()
+        assert k5.fused_adam8_update_leaves.launches == before + 1
+        for i, path in enumerate(optim8.leaf_order(grads)):
+            g, mu, nu = grads[path], state.mu[path], state.nu[path]
+            layout = k5.LeafLayout((i,), (optim8.is_transposed(path, g),),
+                                   (not optim8.kernel_route(g),), (mu.q.shape[0],))
+            (w,), flat = k5.fused_adam8_update_leaves_reference(
+                [g], (mu.q, mu.scale, nu.q, nu.scale), layout, count, b1=0.9, b2=0.999,
+                eps=1e-6, correct_bias=False, stochastic_round=True, seed=0x8B17)
+            assert torch.equal(u[path], w)
+            got = (new.mu[path].q, new.mu[path].scale, new.nu[path].q, new.nu[path].scale)
+            assert all(torch.equal(a, b) for a, b in zip(got, flat)), path
+        state = new
+
+
 def test_adamw8bit_train_step_on_the_fused_route(cuda_device):
     """A tiny train step (f32, remat) on the whole-block route with AdamW8bit:
-    K4 twice a layer, K5 once a parameter tensor, and the same parameters as
+    K4 twice a layer, K5 once a step over every parameter tensor, and the same parameters as
     the step on the CPU path (the same kernels' plain versions) within 1e-4
     of the step's movement."""
     base = dict(vocab_size=64, d_model=128, d_kv=64, d_ff=256, num_layers=2,
@@ -522,12 +670,12 @@ def test_adamw8bit_train_step_on_the_fused_route(cuda_device):
             model.load_state_dict(init)
         init = {k: t.detach().cpu().clone() for k, t in model.state_dict().items()}
         state = TrainState.create(model_params(model), make_optimizer(cfg))
-        before = (k4.fused_attention.launches, k5.fused_adam8_update.launches)
+        before = (k4.fused_attention.launches, k5.fused_adam8_update_leaves.launches)
         state, loss = make_reader_train_step(model)(state, ids.to(dev), mask.to(dev),
                                                    labels.to(dev), 0)
         launched = (k4.fused_attention.launches - before[0],
-                    k5.fused_adam8_update.launches - before[1])
-        assert launched == ((4, len(state.params)) if dev.type == "cuda" else (0, 0))
+                    k5.fused_adam8_update_leaves.launches - before[1])
+        assert launched == ((4, 1) if dev.type == "cuda" else (0, 0))
         results.append({k: t.detach().cpu() for k, t in model.state_dict().items()})
     for name, a in results[0].items():
         moved = float((results[1][name] - init[name]).abs().max())
