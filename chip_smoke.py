@@ -47,7 +47,22 @@
    the JAX package takes its fused Pallas kernel); each time checks that
    each kernel was launched the expected number of times, and that the
    greedy tokens, the next token under teacher forcing and the encoder
-   states agree with the no-kernel service.
+   states agree with the no-kernel service. Greedy decode runs its token
+   loop as CUDA graphs (a prefill step, then captured chunks replayed).
+   Decode modes, the same 20 requests on the streamed route: full-length
+   and chunked (``decode_chunk_size=16``) service, each as CUDA graphs and
+   as the eager loop, tokens identical to the served run and graphs to
+   eager, the chunks each batch ran and the wrapper counts of K1 and K3 in
+   the chunked run; a step's device time (CUDA events around the replay of the
+   48-step graph) and a chunk's dispatch beyond its device time (host clock
+   around a replay and the all-done read), the two numbers of
+   ``engine.py``'s chunking cost model; ``engine_policy="auto"`` at
+   occupancy 1 and 8 and its decisions; ``weights_dtype="int8"`` and
+   ``kv_dtype="int8mxu"`` against native K/V and weights, held to the JAX
+   package's bounds; beam-4 through ``LakoService``, and at 2 decoder
+   layers of t5-large width in float32 its tokens against
+   ``beam_generate`` (the layer-unrolled beam search); answers/s of each
+   run.
 6. Training path, at t5-large width (B=8, N=2, L=130, remat), on each of
    the two encoder routes:
    a. one train step's loss and gradients with the kernels against the
@@ -65,7 +80,12 @@
    d. train-step examples/s with the kernels and without, and AdamW against
       AdamW8bit with its peak device memory (host clock, synchronized,
       first step excluded).
-7. Prints the kernel summary as one JSON line, the nvidia-smi line again,
+7. After every timed phase, under torch.profiler: a new chunked service
+   serves the 20 requests; the kernel wrappers' counts (the launches a
+   capture records count once, a replay calls no wrapper) and the K3
+   kernels that ran on the card, graph replays included, each against the
+   count the batches' chunks imply; then the kernels of one decode step.
+8. Prints the kernel summary as one JSON line, the nvidia-smi line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0. Without a CUDA device it exits
@@ -74,6 +94,7 @@ with code 2 before printing any result.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import importlib.util
@@ -148,6 +169,8 @@ SOUNDS = ["meow", "woof", "moo", "quack", "croak", "buzz", "hoot", "howl", "neig
 
 
 # the sources whose kernels' registers and spills the run reports (ptxas -v)
+# the name of K3's kernel function (csrc/decode_cross_attn.cu) in a profiler trace
+K3_KERNEL = "decode_cross_kernel"
 PTXAS_SOURCES = ("flash_streamed_fwd.cu", "fused_attention.cu", "flash_streamed_bwd.cu",
                  "decode_cross_attn.cu", "adam8.cu")
 
@@ -531,6 +554,17 @@ def check_decode_cross(dev):
         log(f"  {label}: bitwise equal in a second launch: {same}")
         if not same:
             raise AssertionError(f"K3 is not repeatable at {label}")
+        if B == 8:    # as the decode engine runs it: captured in a CUDA graph, replayed
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = k3.fused_decode_cross_attention(*args)
+            graph.replay()
+            torch.cuda.synchronize()
+            same = bool(torch.equal(replayed, out))
+            log(f"  {label}: bitwise equal replayed from a CUDA graph: {same}")
+            if not same:
+                raise AssertionError(f"K3 differs in a CUDA graph at {label}")
+            del graph, replayed
         # the native-KV decode's read: bf16 K/V (B,h,K,d), one query row
         q4 = q[:, :, None, :]
         k16, v16 = (t.transpose(2, 3).to(torch.bfloat16).contiguous() for t in (kf, vf))
@@ -955,33 +989,40 @@ def serving_t5(route: str):
     return t5.replace(flash_min_length=128) if route == "streamed" else t5
 
 
-def run_slice(dev):
-    """The serving path on both encoder routes; returns each route's launches."""
+def serving_setup(dev):
+    """The served configuration (int8 K/V through K3), its weights (seeded),
+    the 20 requests and their tokenizer."""
     from lako_tpu_torch.core.config import ReaderDataConfig
-    from lako_tpu_torch.data import ReaderCollator, ReaderDataset
     from lako_tpu_torch.models.t5 import init_fid_t5
-    from lako_tpu_torch.serve import LakoService, ServiceConfig, make_http_server
+    from lako_tpu_torch.serve import ServiceConfig
     from lako_tpu_torch.text.tokenizer import WordVocabTokenizer
 
-    t5 = serving_t5("streamed")
     cfg = ServiceConfig(batch_size=8, max_length=50, n_context=10,
                         data=ReaderDataConfig(), decode_backend="engine",
                         decode_kv_dtype="int8", decode_fused_cross=True)
-    log(f"slice: t5-large ({t5.num_layers}+{t5.num_decoder_layers} layers, d_model "
-        f"{t5.d_model}, {t5.num_heads} heads, d_kv {t5.d_kv}), bf16, B={cfg.batch_size}, "
-        f"N={cfg.data.n_passages}, L={cfg.data.text_maxlength}, max_length={cfg.max_length}")
-    t0 = time.perf_counter()
-    model = init_fid_t5(t5, torch.Generator(device=dev).manual_seed(SEED))
+    model = init_fid_t5(serving_t5("streamed"), torch.Generator(device=dev).manual_seed(SEED))
     # At the init's unit std the random tied embedding keeps the decoder start
     # token dominant in the residual stream and every greedy token is pad;
     # scaled down, the tokens depend on the passages.
     with torch.no_grad():
         model.t5.shared.weight.mul_(EMBEDDING_SCALE)
-    params = model.state_dict()
     requests = make_requests(20)
     corpus = [f"{r['question']} {r['caption']}" for r in requests] + [
         f["sentence"] for f in requests[0]["fact"]] + ["question: context: fact:"]
-    tok = WordVocabTokenizer.build(corpus)
+    return cfg, model.state_dict(), WordVocabTokenizer.build(corpus), requests
+
+
+def run_slice(dev):
+    """The serving path on both encoder routes; returns each route's launches."""
+    from lako_tpu_torch.data import ReaderCollator, ReaderDataset
+    from lako_tpu_torch.serve import LakoService, make_http_server
+
+    t5 = serving_t5("streamed")
+    t0 = time.perf_counter()
+    cfg, params, tok, requests = serving_setup(dev)
+    log(f"slice: t5-large ({t5.num_layers}+{t5.num_decoder_layers} layers, d_model "
+        f"{t5.d_model}, {t5.num_heads} heads, d_kv {t5.d_kv}), bf16, B={cfg.batch_size}, "
+        f"N={cfg.data.n_passages}, L={cfg.data.text_maxlength}, max_length={cfg.max_length}")
     service = LakoService(cfg, t5, params, tok, device=dev)
     log(f"  weights + service ready in {time.perf_counter() - t0:.1f} s")
     service.answer_batch(requests[:1])          # warm-up (cuBLAS, allocator)
@@ -1007,9 +1048,11 @@ def run_slice(dev):
     steps = cfg.max_length - 1
     log(f"  20 requests in {seconds:.3f} s: {20 / seconds:.2f} answers/s "
         f"(host clock, 3 batches, bf16, one request per answer)")
+    # K3's wrapper runs at step 0; the warm-up captured the later steps'
+    # graph, whose replays call no wrapper (their K3 runs: the last phase)
     check_counts("the served run (streamed route)", launches["streamed"],
                  {"streamed_attention": batches * t5.num_layers,
-                  "fused_decode_cross_attention": batches * t5.num_decoder_layers * steps})
+                  "fused_decode_cross_attention": batches * t5.num_decoder_layers})
     if tokens.shape != (20, steps) or tokens.min() < 0 or tokens.max() >= t5.vocab_size:
         raise AssertionError(f"bad token array {tokens.shape} "
                              f"[{tokens.min()}, {tokens.max()}]")
@@ -1065,7 +1108,7 @@ def run_slice(dev):
             raise AssertionError(f"{name}: encoder states disagree with plain attention")
 
     agree("streamed route (K1)", tokens, service)
-    del service, model
+    del service
 
     # the reference kernel route: the JAX default flash_min_length sends L=130 to K4
     fused_t5 = serving_t5("fused")
@@ -1084,11 +1127,282 @@ def run_slice(dev):
         f"3 batches)")
     check_counts("the served run (whole-block route)", launches["fused"],
                  {"fused_attention": 3 * fused_t5.num_layers,
-                  "fused_decode_cross_attention": 3 * fused_t5.num_decoder_layers * steps})
+                  "fused_decode_cross_attention": 3 * fused_t5.num_decoder_layers})
     log(f"  whole-block route (K4): token agreement with the streamed route (K1): "
         f"{float((fused_tokens == tokens).mean()):.4f}")
     agree("whole-block route (K4)", fused_tokens, fused)
-    return launches
+    shared = dict(cfg=cfg, params=params, tok=tok, requests=requests, tokens=tokens,
+                  ids=ids, pmask=pmask)
+    return launches, shared
+
+
+def served_run(service, requests):
+    """(tokens, host seconds, chunks each batch ran) of one generate_tokens
+    call; the seconds end with the tokens' copy to the host."""
+    from lako_tpu_torch.models.t5.engine import DecodeEngine
+
+    gen = service._generate
+    engine = getattr(gen, "__self__", None)
+    chunks = []
+
+    def counted(ids, mask):
+        out = gen(ids, mask)
+        chunks.append(engine.last_chunks)
+        return out
+
+    if isinstance(engine, DecodeEngine):
+        service._generate = counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        _, tokens = service.generate_tokens(requests)
+    finally:
+        service._generate = gen
+    return tokens, time.perf_counter() - t0, chunks
+
+
+def eager_twin(service):
+    """A copy of the service whose greedy engine runs the token loop
+    eagerly, for holding the CUDA graphs to the eager loop."""
+    from lako_tpu_torch.models.t5.engine import DecodeEngine
+
+    eng = service._generate.__self__
+    twin = copy.copy(service)
+    twin._generate = DecodeEngine(
+        eng.model, max_length=eng.max_length, kv_dtype=eng.kv_dtype,
+        weights_dtype=eng.weights_dtype, fused_cross=eng.fused_cross,
+        chunk_size=eng.chunk_size, self_cache_layout=eng.self_cache_layout,
+        cuda_graphs=False).generate
+    return twin
+
+
+def require_same(what, got, want):
+    same = bool(np.array_equal(got, want))
+    log(f"  {what}: tokens identical: {same}")
+    if not same:
+        raise AssertionError(f"{what}: tokens differ ({float((got == want).mean()):.4f} agree)")
+
+
+def run_decode(dev, shared):
+    """The decode modes of the serving path at t5-large width on the streamed
+    route (K1): full-length and chunked decode as CUDA graphs against the
+    eager loop, the chunking cost model's two numbers, engine_policy="auto",
+    int8 weights and int8mxu against native K/V (held to the JAX package's
+    bounds), beam-4 through LakoService, timed at full width and held to
+    beam_generate at 2 decoder layers in float32. Returns the chunked run's
+    launches."""
+    from lako_tpu_torch.models.t5 import init_fid_t5
+    from lako_tpu_torch.models.t5.beam import beam_generate
+    from lako_tpu_torch.models.t5.engine import (
+        CHUNK_DISPATCH_COST_S,
+        CHUNK_PER_STEP_COST_S,
+        DecodeEngine,
+    )
+    from lako_tpu_torch.serve import LakoService
+
+    t5 = serving_t5("streamed")
+    cfg, params, tok = shared["cfg"], shared["params"], shared["tok"]
+    requests, served = shared["requests"], shared["tokens"]
+    ids, pmask = shared["ids"], shared["pmask"]
+    steps, layers, n = cfg.max_length - 1, t5.num_decoder_layers, len(requests)
+    rates = {}
+
+    def service(**change):
+        return LakoService(dataclasses.replace(cfg, **change), t5, params, tok, device=dev)
+
+    log(f"decode modes: t5-large, bf16, B={cfg.batch_size}, {n} requests, streamed route "
+        f"(K1); greedy with int8 K/V through K3 unless stated")
+    full = service()
+    full.generate_tokens(requests)                 # captures the batch shape's graph
+    tokens, seconds, chunks = served_run(full, requests)
+    rates["full length, graphed"] = n / seconds
+    require_same("full length, graphed, against the served run", tokens, served)
+    eager = eager_twin(full)
+    eager.generate_tokens(requests[:1])
+    eager_tokens, seconds, _ = served_run(eager, requests)
+    rates["full length, eager"] = n / seconds
+    require_same("full length, graph replay against the eager loop", eager_tokens, tokens)
+    engine = full._generate.__self__
+    graph = next(iter(engine._batches.values())).chunks[1, steps - 1].graph
+    step_ms = event_ms(graph.replay) / (steps - 1)
+    log(f"  a step's device time: {step_ms:.4f} ms (CUDA events around the replay of the "
+        f"{steps - 1}-step graph, 5 replays)")
+    del eager, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    chunked = service(decode_chunk_size=16)
+    chunked.generate_tokens(requests)              # captures every chunk the requests run
+    reset_counts()
+    chunked_tokens, seconds, chunks = served_run(chunked, requests)
+    launches = read_counts()
+    rates["chunked (16), graphed"] = n / seconds
+    log(f"  chunked (decode_chunk_size=16): chunks run per batch {chunks} (of "
+        f"{-(-(steps - 1) // 16)} after the prefill step)")
+    require_same("chunked against full length", chunked_tokens, served)
+    check_counts("the chunked run (graphs captured before it)", launches,
+                 {"streamed_attention": len(chunks) * t5.num_layers,
+                  "fused_decode_cross_attention": len(chunks) * layers})
+    eager = eager_twin(chunked)
+    eager.generate_tokens(requests[:1])
+    eager_tokens, seconds, eager_chunks = served_run(eager, requests)
+    rates["chunked (16), eager"] = n / seconds
+    require_same("chunked, graph replay against the eager loop", chunked_tokens, eager_tokens)
+    if eager_chunks != chunks:
+        raise AssertionError(f"eager chunks {eager_chunks} != graphed {chunks}")
+    chunk = next(iter(chunked._generate.__self__._batches.values())).chunks[1, 16]
+    chunk_ms = event_ms(chunk.graph.replay)
+    walls = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk.graph.replay()
+        bool(chunk.all_done)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    dispatch_ms = float(np.median(walls)) - chunk_ms
+    log(f"  a graphed chunk of 16 steps: device {chunk_ms:.4f} ms, host clock around replay "
+        f"and the all-done read median {np.median(walls):.4f} ms of 20: dispatch "
+        f"{dispatch_ms:.4f} ms beyond the device time (engine.py's CHUNK_DISPATCH_COST_S "
+        f"{CHUNK_DISPATCH_COST_S * 1e3:g} ms, CHUNK_PER_STEP_COST_S "
+        f"{CHUNK_PER_STEP_COST_S * 1e3:g} ms)")
+    del chunked, eager, chunk
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    auto = service(engine_policy="auto")
+    auto_one = auto.generate_tokens(requests[:1])[1]
+    auto_eight = auto.generate_tokens(requests[:8])[1]
+    decisions = list(auto.policy_decisions)
+    log(f"  engine_policy='auto' (threshold max(8 // 2, 5) = {auto._policy_threshold}): "
+        f"decisions at occupancy 1 and 8: {decisions}")
+    if decisions != [("full", 1), ("chunked", 8)]:
+        raise AssertionError(f"engine_policy='auto' decided {decisions}")
+    require_same("auto, occupancy 1 and 8, against full length",
+                 np.concatenate([auto_one, auto_eight]),
+                 np.concatenate([served[:1], served[:8]]))
+    del auto
+    gc.collect()
+
+    native = service(decode_kv_dtype="native", decode_fused_cross=False)
+    native_tokens = served_run(native, requests)[0]
+    with torch.inference_mode():
+        _, ref_xl = DecodeEngine(native.model, collect_cross_scores=True).generate(ids, pmask)
+    valid = pmask.reshape(pmask.shape[0], 1, 1, -1)
+    scale = float((ref_xl.abs() * valid).max())
+    for name, change, (xl_bound, agree_min) in (
+            ("int8 weights", dict(decode_kv_dtype="native", decode_fused_cross=False,
+                                  decode_weights_dtype="int8"), (0.1, 0.85)),
+            ("int8mxu K/V", dict(decode_kv_dtype="int8mxu", decode_fused_cross=False),
+             (0.05, 0.9))):
+        svc = service(**change)
+        mode_tokens = served_run(svc, requests)[0]
+        eng = svc._generate.__self__
+        _, xl = DecodeEngine(svc.model, collect_cross_scores=True, kv_dtype=eng.kv_dtype,
+                             weights_dtype=eng.weights_dtype).generate(ids, pmask)
+        err = float(((xl - ref_xl).abs() * valid).max()) / scale
+        agreement = float((mode_tokens == native_tokens).mean())
+        log(f"  {name} against native K/V and weights: step-0 cross logits max error / "
+            f"scale {err:.4f} (max {xl_bound}), token agreement {agreement:.4f} (min "
+            f"{agree_min}); the JAX package's bounds (tests/test_engine.py)")
+        if not (bool(torch.isfinite(xl).all()) and mode_tokens.shape == native_tokens.shape):
+            raise AssertionError(f"{name}: bad output")
+        if not (err <= xl_bound and agreement >= agree_min):
+            raise AssertionError(f"{name}: outside the JAX package's bounds")
+        del svc, eng, xl
+    del native, ref_xl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    beam_change = dict(num_beams=4, decode_kv_dtype="native", decode_fused_cross=False)
+    beam = service(**beam_change)
+    beam.generate_tokens(requests[:1])
+    beam_tokens, seconds, _ = served_run(beam, requests)
+    rates["beam-4"] = n / seconds
+    if (beam_tokens.shape != (n, steps) or beam_tokens.min() < 0
+            or beam_tokens.max() >= t5.vocab_size):
+        raise AssertionError(f"beam-4: bad tokens {beam_tokens.shape}")
+    log(f"  beam-4 (beam engine, blockwise selection): first answers "
+        f"{tok.batch_decode(beam_tokens[:2])!r}; token agreement with greedy on native K/V "
+        f"{float((beam_tokens == native_tokens).mean()):.4f}")
+    del beam
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # beam-4 through LakoService against the layer-unrolled beam search
+    # (models/t5/beam.py) on the same inputs, at 2 decoder layers in float32
+    t5_2 = t5.replace(num_decoder_layers=2)
+    model = init_fid_t5(t5_2, torch.Generator(device=dev).manual_seed(SEED))
+    with torch.no_grad():
+        model.t5.shared.weight.mul_(EMBEDDING_SCALE)
+    small = LakoService(dataclasses.replace(cfg, dtype="float32", **beam_change), t5_2,
+                        model.state_dict(), tok, device=dev)
+    got = small.generate_tokens(requests[:cfg.batch_size])[1]
+    want = beam_generate(model, ids, pmask, max_length=cfg.max_length, num_beams=4)
+    log(f"  beam-4 at 2 decoder layers of t5-large width, f32, B={ids.shape[0]}: "
+        f"LakoService (beam engine) against beam_generate (layer-unrolled), "
+        f"{len(np.unique(want.cpu().numpy()))} distinct ids")
+    require_same("beam-4, beam engine against beam_generate", got, want.cpu().numpy())
+    del model, small
+
+    card = torch.cuda.get_device_name(0)
+    log(f"  answers/s ({n} requests, host clock, {card}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()))
+    return {"chunked": launches}
+
+
+def device_kernels(prof, name: str) -> int:
+    """The kernels whose name holds ``name`` that ran on the card in a
+    torch.profiler trace (CUDA graph replays included)."""
+    return sum(name in e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def run_profiled(dev):
+    """The chunked service (decode_chunk_size=16, int8 K/V through K3) built
+    anew, serving the 20 requests under torch.profiler: the kernel wrappers'
+    counts (step 0 of each batch, the warm-up step and the launches each
+    capture records) and the K3 kernels that really ran, graph replays
+    included; then the kernels of one decode step of its engine, run
+    eagerly. The script's last phase, so that no timed phase runs after a
+    profiler in the process. Returns the served run's launches."""
+    from lako_tpu_torch.serve import LakoService
+
+    cfg, params, tok, requests = serving_setup(dev)
+    t5 = serving_t5("streamed")
+    layers, steps = t5.num_decoder_layers, cfg.max_length - 1
+    service = LakoService(dataclasses.replace(cfg, decode_chunk_size=16), t5, params, tok,
+                          device=dev)
+    engine = service._generate.__self__
+    reset_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        chunks = served_run(service, requests)[2]
+        torch.cuda.synchronize()
+    launches = read_counts()
+    k3_runs = device_kernels(prof, K3_KERNEL)
+    st = next(iter(engine._batches.values()))
+    captured = sum(n for _, n in st.chunks)
+    check_counts("the chunked service's first 20 requests (profiled)", launches,
+                 {"streamed_attention": len(chunks) * t5.num_layers,
+                  "fused_decode_cross_attention": layers * (len(chunks) + 1 + captured)})
+    run_steps = [1 + min(steps - 1, 16 * c) for c in chunks]
+    want_runs = layers * (sum(run_steps) + 1)
+    log(f"  K3 kernels that ran on the card in that run (torch.profiler trace, graph "
+        f"replays included): {k3_runs}; expected {layers} layers x ({' + '.join(map(str, run_steps))}"
+        f" steps of its {len(chunks)} batches + 1 warm-up step) = {want_runs}; the wrapper "
+        f"counted {launches['fused_decode_cross_attention']} (step 0, the warm-up step and "
+        f"the {captured} captured steps)")
+    if k3_runs != want_runs:
+        raise AssertionError(f"K3 ran {k3_runs} times on the card, expected {want_runs}")
+    with torch.inference_mode(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        engine._run_chunk(st, 1, 1)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    log(f"one decode step of the served engine (t5-large, B={cfg.batch_size}, int8 K/V "
+        f"through K3), run eagerly: {len(kernels)} kernels, "
+        f"{sum(e.time_range.elapsed_us() for e in kernels) / 1e3:.4f} ms of kernel time "
+        f"(torch.profiler)")
+    return {"chunked": dict(launches, device_launches=k3_runs)}
 
 
 def train_fixture():
@@ -1396,7 +1710,7 @@ LAUNCHES_FROM = {"streamed_attention": ("training", "streamed"),
                  "streamed_attention_bwd_dkdv": ("training", "streamed"),
                  "streamed_attention_bwd_dq": ("training", "streamed"),
                  "streamed_attention_bwd_drel": ("training", "streamed"),
-                 "fused_decode_cross_attention": ("serving", "streamed"),
+                 "fused_decode_cross_attention": ("profiled", "chunked"),
                  "fused_attention": ("training", "fused"),
                  "fused_adam8_update_leaves": ("training", "fused"),
                  "adam8_ema_fragment": ("floor_proof", "micro")}
@@ -1440,16 +1754,26 @@ def main() -> int:
     runs = {"floor_proof": run_floor_proof(dev)}   # K5 and K6
     gc.collect()
     torch.cuda.empty_cache()
-    runs["serving"] = run_slice(dev)            # K1 or K4, and K3
+    runs["serving"], shared = run_slice(dev)    # K1 or K4, and K3
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["decode"] = run_decode(dev, shared)    # K1 and K3 in captured chunks
+    del shared
     gc.collect()
     torch.cuda.empty_cache()
     runs["training"] = run_training(dev)        # K1 + K2a/K2b/K2c, or K4 + K5 (once a step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["profiled"] = run_profiled(dev)         # K3 in captured chunks, from a trace
     for entry_ in kernels:
         phase, route = LAUNCHES_FROM[entry_["name"]]
         entry_["launches"] = runs[phase][route][entry_["name"]]
+        if entry_["name"] == "fused_decode_cross_attention":
+            entry_["device_launches"] = runs[phase][route]["device_launches"]
     log(f"launches: {({e['name']: e['launches'] for e in kernels})} (K1 and K2 from the "
-        f"streamed route's train_reader run, K3 from the served run, K4 and K5 from the "
-        f"whole-block route's train_reader run, K6 from the floor proof)")
+        f"streamed route's train_reader run, K3 from the chunked service's profiled run, "
+        f"with its device_launches from the trace, K4 and K5 from the whole-block route's "
+        f"train_reader run, K6 from the floor proof)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -242,6 +242,31 @@ class T5Attention(nn.Module):
     def project_kv(self, enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.split_kv_heads(self.k(enc)), self.split_kv_heads(self.v(enc))
 
+    def _attend(self, q, k, v, bias):
+        logits = self._qk(q, k).float()
+        if bias is not None:
+            logits = logits + bias.float()
+        probs = torch.softmax(logits, dim=-1).to(self.dtype)
+        return self.o(self.merge_heads(self._pv(probs, v))), logits
+
+    def step_cached(self, hidden: torch.Tensor, cache: Tuple[torch.Tensor, torch.Tensor],
+                    step: int, bias: torch.Tensor) -> torch.Tensor:
+        """Incremental self-attention of one position: this step's k/v are
+        written into ``cache`` ((B, h, max_len, d), in place) at ``step``,
+        then q attends over the whole cache; ``bias`` masks the positions
+        after ``step``."""
+        ck, cv = cache
+        ck[:, :, step:step + 1] = self.split_kv_heads(self.k(hidden))
+        cv[:, :, step:step + 1] = self.split_kv_heads(self.v(hidden))
+        return self._attend(self.split_heads(self.q(hidden)), ck, cv, bias)[0]
+
+    def attend_cached(self, hidden: torch.Tensor,
+                      cross_kv: Tuple[torch.Tensor, torch.Tensor],
+                      bias: Optional[torch.Tensor]):
+        """Cross-attention against precomputed K/V (incremental decode):
+        returns (output, logits)."""
+        return self._attend(self.split_heads(self.q(hidden)), *cross_kv, bias)
+
     def forward(self, hidden: torch.Tensor, kv: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
                 stream_parts: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -331,6 +356,18 @@ class T5DecoderBlock(nn.Module):
             self.drop_cross = Dropout(cfg.dropout_rate)
         self.drop_mlp = Dropout(cfg.dropout_rate)
 
+    def decode_step(self, x, self_bias, cross_bias, cache, cross_kv, step: int):
+        """One incremental step (eval: no dropout). x: (B, 1, H); cache: this
+        layer's self K/V, written at ``step``; cross_kv: the precomputed
+        encoder K/V. Returns (x, cross_logits (B, h, 1, K) | None)."""
+        x = x + self.self_attn.step_cached(self.ln_self(x), cache, step, self_bias)
+        cross_logits = None
+        if self.has_cross:
+            h, cross_logits = self.cross_attn.attend_cached(self.ln_cross(x), cross_kv,
+                                                            cross_bias)
+            x = x + h
+        return x + self.mlp(self.ln_mlp(x)), cross_logits
+
     def forward(self, x, enc, self_bias, cross_bias):
         """Teacher-forced block. Returns (x, cross_logits | None)."""
         h, _ = self.self_attn(self.ln_self(x), bias=self_bias)
@@ -340,6 +377,14 @@ class T5DecoderBlock(nn.Module):
             h, cross_logits = self.cross_attn(self.ln_cross(x), kv=enc, bias=cross_bias)
             x = x + self.drop_cross(h)
         return x + self.drop_mlp(self.mlp(self.ln_mlp(x))), cross_logits
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest entries of ``x`` along its last axis, largest first,
+    with ``lax.top_k``'s order among equal values: the lower index first
+    (a stable descending sort; ``torch.topk`` promises no order for ties)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
 
 
 def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:

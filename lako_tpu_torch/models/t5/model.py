@@ -40,6 +40,7 @@ from torch.utils.checkpoint import (
 
 from lako_tpu_torch.core.config import T5Config
 from lako_tpu_torch.models.t5.layers import (
+    NEG_INF,
     Dense,
     Dropout,
     RelativePositionBias,
@@ -180,6 +181,26 @@ class T5Decoder(_Stack):
         self-attention relpos bias and the cross-attention key-mask bias."""
         return self.relpos(max_len, max_len), mask_to_bias(enc_mask)
 
+    def decode_step(self, embeds, self_bias_full, cross_bias, self_caches, cross_kvs,
+                    step: int, max_len: int, collect_cross_logits: bool = False):
+        """One incremental step (eval). embeds: (B, 1, H); the biases come
+        from :meth:`decode_biases`, the caches from :meth:`init_cache` (the
+        self K/V are written in place at ``step``). Returns (hidden (B,1,H),
+        cross_logits (B, cross layers, heads, K) | None)."""
+        row = self_bias_full[:, :, step:step + 1]                  # (1, h, 1, S)
+        valid = torch.arange(max_len, device=row.device) <= step
+        row = torch.where(valid, row, torch.full((), NEG_INF, dtype=row.dtype,
+                                                 device=row.device))
+        x = embeds
+        cross_logits = []
+        for block, cache, ckv in zip(self.blocks, self_caches, cross_kvs):
+            x, xl = block.decode_step(x, row, cross_bias, cache, ckv, step)
+            if collect_cross_logits and xl is not None:
+                cross_logits.append(xl[:, :, 0, :])               # (B, heads, K)
+        x = self.final_ln(x)
+        stacked = torch.stack(cross_logits, dim=1) if collect_cross_logits else None
+        return x, stacked
+
 
 class T5(nn.Module):
     """Plain T5 conditional generation model (single passage)."""
@@ -248,6 +269,16 @@ class FiDT5(nn.Module):
         B, N, L = input_ids.shape
         enc = self.t5.encode(input_ids.reshape(B * N, L), mask.reshape(B * N, L))
         return enc.reshape(B, N * L, enc.shape[-1]), mask.reshape(B, N * L)
+
+    def decode_step(self, tokens: torch.Tensor, self_bias_full, cross_bias, self_caches,
+                    cross_kvs, step: int, max_len: int, collect_cross_logits: bool = False):
+        """One greedy/beam decode step of the layer-unrolled path: tokens (B,)
+        → (logits (B, V), step cross logits (B, cross layers, heads, K) |
+        None); the self caches are written in place (T5Decoder.decode_step)."""
+        hidden, xl = self.t5.decoder.decode_step(
+            self.t5.embed(tokens[:, None]), self_bias_full, cross_bias, self_caches,
+            cross_kvs, step, max_len, collect_cross_logits)
+        return self.t5.logits_from_hidden(hidden[:, 0]), xl
 
     def forward(self, input_ids, mask, labels, *, collect_cross_logits: bool = False):
         """Returns (loss, logits, cross_logits | None). cross_logits: (B,

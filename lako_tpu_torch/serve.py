@@ -1,30 +1,34 @@
 """Serving: answer knowledge-based questions with the FiD reader.
 
 Counterpart of lako_tpu/serve.py. ``LakoService.answer_batch`` collates the
-requests into fixed ``(B, N, L)`` batches, encodes the passages and runs
-greedy decode in the stacked-weight engine, under ``torch.inference_mode``.
-A stdlib HTTP endpoint wraps it, optionally behind a micro-batcher.
+requests into fixed ``(B, N, L)`` batches, encodes the passages and decodes
+them (models/t5/decode.py ``make_best_generate_fn``: greedy or beam search,
+on the stacked-weight engines or the layer-unrolled path), under
+``torch.inference_mode``. A stdlib HTTP endpoint wraps it, optionally behind
+a micro-batcher.
 
 Requests carry their own facts: retrieval is not ported yet, so
 ``retrieve_facts`` returns no facts, as the JAX service does without a
-retriever. Not ported yet, and refused at construction: tensor-parallel
-serving (``mesh_model > 1``), beam search (``num_beams > 1``) and
-``engine_policy="auto"``.
+retriever. Tensor-parallel serving (``mesh_model > 1``) is not ported yet and
+is refused at construction.
 """
 
 from __future__ import annotations
 
 import json
+from collections import deque
 from dataclasses import dataclass, field
-from typing import List, Mapping, Optional, Sequence, Tuple
+from typing import Deque, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from lako_tpu_torch.core.config import ReaderDataConfig, T5Config
 from lako_tpu_torch.core.device import resolve_device
+from lako_tpu_torch.core.logging import get_logger
 from lako_tpu_torch.data import ReaderCollator, ReaderDataset
 from lako_tpu_torch.models.t5.decode import make_best_generate_fn
+from lako_tpu_torch.models.t5.engine import DecodeEngine
 from lako_tpu_torch.models.t5.model import FiDT5
 
 
@@ -39,15 +43,18 @@ class ServiceConfig:
     # token elimination: keep only this many encoder states for decode
     keep_tokens: Optional[int] = None
     decode_backend: str = "auto"     # "auto" | "engine" | "flax"
-    decode_kv_dtype: str = "native"  # "native" | "int8"
-    decode_weights_dtype: str = "native"
+    decode_kv_dtype: str = "native"  # "native" | "int8" | "int8mxu"
+    decode_weights_dtype: str = "native"  # "native" | "int8" (weight-only)
     decode_chunk_size: Optional[int] = None
-    # the beam engine's self-KV formulation; only the default until beam
-    # search is ported
+    # the beam engine's self-KV formulation (allslots | gather | flat |
+    # packed | stepmajor | fusedkv); greedy ignores it
     decode_self_attn_impl: str = "allslots"
-    engine_policy: str = "fixed"     # "fixed" | "auto"
-    # occupancy at which engine_policy="auto" picks chunked decode; only the
-    # default until that policy is ported
+    # "fixed": decode_chunk_size as configured; "auto": chunked early-exit
+    # decode for batches of at least policy_chunked_min_occupancy requests,
+    # full-length below (greedy only)
+    engine_policy: str = "fixed"
+    # None = max(batch_size // 2, 5); a value batch_size cannot reach, or
+    # below 1, is refused
     policy_chunked_min_occupancy: Optional[int] = None
     # micro-batching window of the HTTP server; 0 = one batch per request
     batch_window_ms: float = 0.0
@@ -64,6 +71,14 @@ class LakoService:
     ``models.t5.params_from_jax`` or ``init_fid_t5(...).state_dict()``); the
     service builds its own model on ``device`` (the CUDA card unless given;
     it raises without one) and loads it.
+
+    ``engine_policy="auto"`` runs two greedy programs on one engine, the
+    full-length one and a chunked early-exit one (``decode_chunk_size or
+    16``), and picks per device batch by its real occupancy: chunked from
+    ``policy_chunked_min_occupancy`` requests up (default
+    ``max(batch_size // 2, 5)``), full-length below. Each decision is kept
+    in ``policy_decisions``. Beam search has no chunked program and ignores
+    the policy.
     """
 
     def __init__(self, cfg: ServiceConfig, t5_config: T5Config,
@@ -72,26 +87,34 @@ class LakoService:
         if cfg.engine_policy not in ("fixed", "auto"):
             raise ValueError(
                 f"engine_policy must be fixed|auto, got {cfg.engine_policy!r}")
-        if cfg.engine_policy == "auto":
-            raise NotImplementedError(
-                "engine_policy='auto' needs chunked decode, not ported yet "
-                "(ROADMAP item 11)")
         if cfg.mesh_model > 1:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh_model > 1) is not ported yet "
                 "(ROADMAP item 11)")
-        if cfg.num_beams > 1:
-            raise NotImplementedError(
-                "beam search (num_beams > 1) is not ported yet (ROADMAP item 10)")
-        if cfg.decode_self_attn_impl != "allslots":
-            raise NotImplementedError(
-                f"decode_self_attn_impl={cfg.decode_self_attn_impl!r} belongs to the beam "
-                "engine, not ported yet (ROADMAP item 10)")
-        # checked whatever the engine policy, unlike the JAX service
-        if cfg.policy_chunked_min_occupancy is not None:
-            raise NotImplementedError(
-                "policy_chunked_min_occupancy belongs to engine_policy='auto', not "
-                "ported yet (ROADMAP item 11)")
+        self._policy_threshold = (
+            max(cfg.batch_size // 2, 5) if cfg.policy_chunked_min_occupancy is None
+            else cfg.policy_chunked_min_occupancy)
+        # an explicit threshold is checked under either policy, unlike the
+        # JAX service, which checks it only under "auto"
+        explicit = cfg.policy_chunked_min_occupancy is not None
+        if (cfg.engine_policy == "auto" or explicit) and self._policy_threshold < 1:
+            # <= 0 would run chunked decode on every batch, occupancy 1 included
+            raise ValueError(
+                f"policy_chunked_min_occupancy={self._policy_threshold} "
+                "must be >= 1; engine_policy='auto' would silently run "
+                "chunked decode on every batch")
+        if self._policy_threshold > cfg.batch_size:
+            if explicit:
+                raise ValueError(
+                    f"policy_chunked_min_occupancy={self._policy_threshold} can never "
+                    f"be reached with batch_size={cfg.batch_size}; engine_policy='auto' "
+                    "would silently always run full-length")
+            if cfg.engine_policy == "auto":
+                get_logger().warning(
+                    "engine_policy='auto' with batch_size=%d: the default threshold "
+                    "max(batch_size // 2, 5) = %d is out of reach, so every batch "
+                    "will run the full-length engine", cfg.batch_size,
+                    self._policy_threshold)
         self.cfg = cfg
         self.device = resolve_device(device)
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
@@ -100,11 +123,36 @@ class LakoService:
         self.model.load_state_dict(reader_params)
         self.model.eval().requires_grad_(False)
         self.tokenizer = tokenizer
-        self._generate = make_best_generate_fn(
-            self.model, max_length=cfg.max_length, keep_tokens=cfg.keep_tokens,
-            backend=cfg.decode_backend, kv_dtype=cfg.decode_kv_dtype,
-            weights_dtype=cfg.decode_weights_dtype,
-            chunk_size=cfg.decode_chunk_size, fused_cross=cfg.decode_fused_cross)
+        greedy = cfg.num_beams == 1
+
+        # num_beams > 1 routes to the beam engine when the model allows, the
+        # layer-unrolled beam path otherwise
+        def make_gen(chunk_size):
+            return make_best_generate_fn(
+                self.model, max_length=cfg.max_length,
+                keep_tokens=cfg.keep_tokens if greedy else None,
+                backend=cfg.decode_backend, kv_dtype=cfg.decode_kv_dtype,
+                weights_dtype=cfg.decode_weights_dtype, chunk_size=chunk_size,
+                num_beams=cfg.num_beams,
+                self_attn_impl="allslots" if greedy else cfg.decode_self_attn_impl,
+                fused_cross=cfg.decode_fused_cross and greedy)
+
+        chunk_size = cfg.decode_chunk_size
+        # "auto" picks per batch between full-length and chunked decode: one
+        # greedy engine runs both (its graphs are keyed by chunk start and
+        # length); the layer-unrolled path has no chunked program
+        self._policy = cfg.engine_policy == "auto" and greedy
+        if self._policy:
+            chunk_size = chunk_size or 16
+        elif cfg.engine_policy == "auto":
+            get_logger().warning(
+                "engine_policy='auto' applies to greedy decode only; "
+                "num_beams=%d runs the beam engine unconditionally", cfg.num_beams)
+        self._generate = make_gen(chunk_size)
+        engine = getattr(self._generate, "__self__", None)
+        self._takes_chunked = isinstance(engine, DecodeEngine)
+        # ("chunked" | "full", occupancy) per device batch, bounded
+        self.policy_decisions: Deque[tuple] = deque(maxlen=4096)
 
     # -- retrieval -----------------------------------------------------------
 
@@ -148,7 +196,14 @@ class LakoService:
             batch = collator(chunk, pad_to=B)
             ids = torch.from_numpy(batch.passage_ids).to(self.device)
             pmask = torch.from_numpy(batch.passage_mask).to(self.device)
-            out, _ = self._generate(ids, pmask)
+            kw = {}
+            if self._policy:
+                use_chunked = len(chunk) >= self._policy_threshold
+                self.policy_decisions.append(("chunked" if use_chunked else "full",
+                                              len(chunk)))
+                if self._takes_chunked:
+                    kw["chunked"] = use_chunked
+            out, _ = self._generate(ids, pmask, **kw)
             tokens.append(out[: len(chunk)].cpu().numpy())
         steps = self.cfg.max_length - 1
         return examples, (np.concatenate(tokens) if tokens

@@ -362,7 +362,9 @@ def test_engine_kernels_on_the_card(cuda_device):
     k1_before, k3_before = k1.streamed_attention.launches, k3.fused_decode_cross_attention.launches
     t_on, _ = DecodeEngine(on, max_length=6, kv_dtype="int8", fused_cross=True).generate(ids, mask)
     assert k1.streamed_attention.launches == k1_before + 2
-    assert k3.fused_decode_cross_attention.launches == k3_before + 2 * 5
+    # the wrapper's calls, per layer: step 0, one step before the engine's
+    # first graph capture, and the 4 launches the capture records
+    assert k3.fused_decode_cross_attention.launches == k3_before + 2 * 5 + 2
     t_off, _ = DecodeEngine(off, max_length=6, kv_dtype="int8").generate(ids, mask)
     assert len(torch.unique(t_off)) > 1
     assert (t_on == t_off).float().mean() >= 0.9
@@ -374,6 +376,92 @@ def test_engine_kernels_on_the_card(cuda_device):
                                rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError, match="fused_cross"):
         DecodeEngine(off, kv_dtype="native", fused_cross=True)
+
+
+def _tiny_decode_model(dev, seed=0):
+    cfg = T5Config(vocab_size=64, d_model=128, d_kv=64, d_ff=256, num_layers=2,
+                   num_decoder_layers=3, num_heads=2, relative_attention_num_buckets=8,
+                   dropout_rate=0.0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = init_fid_t5(cfg, gen)
+    with torch.no_grad():   # scaled down so that the greedy tokens vary
+        model.t5.shared.weight.mul_(0.02)
+        # EOS where token 5 was a positive argmax: rows finish at different steps
+        model.t5.shared.weight[1] = model.t5.shared.weight[5] * 1.05
+    ids = torch.randint(2, 64, (4, 2, 20), generator=gen, device=dev)
+    mask = torch.rand(4, 2, 20, generator=gen, device=dev) < 0.9
+    mask[..., 0] = True
+    return model, ids, mask
+
+
+def _k3_runs(fn):
+    """fn's result and the K3 kernels that ran on the card while it ran
+    (torch.profiler, graph replays included)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum("decode_cross_kernel" in e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _captured_steps(engine):
+    """The decode steps in every chunk the engine has captured."""
+    return sum(n for st in engine._batches.values() for _, n in st.chunks)
+
+
+@pytest.mark.parametrize("chunk_size", [None, 2])
+@pytest.mark.parametrize("kw", [dict(kv_dtype="int8", fused_cross=True), dict(),
+                                dict(kv_dtype="int8mxu", weights_dtype="int8",
+                                     self_cache_layout="sd")])
+def test_graphed_chunks_equal_eager(cuda_device, kw, chunk_size):
+    """The token loop as CUDA graphs gives the eager loop's tokens, with and
+    without K3, unchunked and chunked, on a first batch and on a second one
+    replayed through the same graphs. The graphs run K3 as often as the eager
+    loop does (from a profiler trace); its wrapper counts the first batch's
+    capture, and on the second batch only step 0 unless a new chunk is
+    captured."""
+    model, ids, mask = _tiny_decode_model(cuda_device)
+    eager = DecodeEngine(model, max_length=10, chunk_size=chunk_size, cuda_graphs=False, **kw)
+    graphed = DecodeEngine(model, max_length=10, chunk_size=chunk_size, **kw)
+    assert graphed.graphed and not eager.graphed
+    layers = model.config.num_decoder_layers
+    for first, batch in ((True, [0, 1, 2, 3]), (False, [3, 1, 2, 0])):
+        before = k3.fused_decode_cross_attention.launches
+        (want, _), eager_runs = _k3_runs(lambda: eager.generate(ids[batch], mask[batch]))
+        eager_k3 = k3.fused_decode_cross_attention.launches - before
+        captured = _captured_steps(graphed)
+        before = k3.fused_decode_cross_attention.launches
+        (got, _), graphed_runs = _k3_runs(lambda: graphed.generate(ids[batch], mask[batch]))
+        graphed_k3 = k3.fused_decode_cross_attention.launches - before
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert graphed.last_chunks == eager.last_chunks
+        fused = bool(kw.get("fused_cross"))
+        warm = layers if first and fused else 0   # one step before the first capture
+        assert eager_runs == eager_k3 and (eager_k3 > 0) == fused
+        assert graphed_runs == eager_k3 + warm
+        new = _captured_steps(graphed) - captured
+        assert graphed_k3 == warm + (layers * (1 + new) if fused else 0)
+    assert len(torch.unique(want)) > 2
+
+
+def test_int8mxu_products_exact_past_1040_keys(cuda_device):
+    """int8mxu's q·K and p·V on the card are exact integers at 2500 keys,
+    against an int64 product on the CPU, the largest sum included."""
+    from lako_tpu_torch.models.t5.engine import _int8_contract
+
+    gen = torch.Generator().manual_seed(0)
+    p = torch.randint(-127, 128, (8, 16, 2500), generator=gen, dtype=torch.int8)
+    v = torch.randint(-127, 128, (8, 16, 64, 2500), generator=gen, dtype=torch.int8)
+    q = torch.randint(-127, 128, (8, 16, 64), generator=gen, dtype=torch.int8)
+    p[0, 0] = 127
+    v[0, 0] = -127
+    got_pv = _int8_contract("bhk,bhdk->bhd", p.to(cuda_device), v.to(cuda_device), 2, 3)
+    got_qk = _int8_contract("bhd,bhdk->bhk", q.to(cuda_device), v.to(cuda_device), 2, 2)
+    want_pv = torch.einsum("bhk,bhdk->bhd", p.long(), v.long())
+    want_qk = torch.einsum("bhd,bhdk->bhk", q.long(), v.long())
+    assert int(want_pv.abs().max()) > 2 ** 24
+    assert torch.equal(got_pv.cpu().long(), want_pv)
+    assert torch.equal(got_qk.cpu().long(), want_qk)
 
 
 def _dense_bias(rel, mask, shape):

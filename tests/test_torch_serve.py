@@ -4,6 +4,7 @@ in no JAX, and a kernel build that never falls back."""
 
 import dataclasses
 import json
+import logging
 import subprocess
 import sys
 import threading
@@ -147,37 +148,138 @@ def test_microbatcher_coalesces_and_isolates(services):
 
 
 def test_unported_service_options_raise(services):
+    """What the service still refuses: tensor-parallel serving (ROADMAP item
+    11); retrieval is absent (no facts)."""
     _, psvc, params = services
     t5 = port_config.T5Config(**dict(TINY, vocab_size=psvc.tokenizer.vocab_size))
-    sd = params_from_jax(params)
-    for change, item in [({"mesh_model": 2}, "11"), ({"num_beams": 4}, "10"),
-                         ({"engine_policy": "auto"}, "11")]:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            LakoService(dataclasses.replace(psvc.cfg, **change), t5, sd, psvc.tokenizer,
-                        device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        LakoService(dataclasses.replace(psvc.cfg, mesh_model=2), t5, params_from_jax(params),
+                    psvc.tokenizer, device="cpu")
     assert psvc.retrieve_facts([{"question": "q"}]) == [[]]
 
 
-@pytest.mark.parametrize("field,other,item", [
-    ("decode_self_attn_impl", "gather", "10"),
-    ("policy_chunked_min_occupancy", 3, "11"),
+@pytest.mark.parametrize("field,other,max_length", [
+    ("decode_self_attn_impl", "gather", 10),
+    ("policy_chunked_min_occupancy", 3, 11),
 ])
-def test_reference_service_fields(services, field, other, item):
+def test_reference_service_fields(services, field, other, max_length):
     """Every field of the JAX ServiceConfig exists in the port's with the same
-    default; the two that belong to unported items are accepted by keyword at
-    that default and raise NotImplementedError naming their item otherwise
-    (policy_chunked_min_occupancy under either engine policy)."""
+    default. decode_self_attn_impl reaches the beam engine under beam search
+    (greedy ignores it); policy_chunked_min_occupancy is the "auto" policy's
+    threshold, and is checked under either policy."""
     _, psvc, params = services
     port_fields = {f.name: f.default for f in dataclasses.fields(ServiceConfig)}
     for f in dataclasses.fields(JaxServiceConfig):
         assert f.name in port_fields and port_fields[f.name] == f.default, f.name
     t5 = port_config.T5Config(**dict(TINY, vocab_size=psvc.tokenizer.vocab_size))
     sd = params_from_jax(params)
-    cfg = dataclasses.replace(psvc.cfg, **{field: port_fields[field]})
-    assert LakoService(cfg, t5, sd, psvc.tokenizer, device="cpu").cfg == psvc.cfg
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        LakoService(dataclasses.replace(psvc.cfg, **{field: other}), t5, sd, psvc.tokenizer,
-                    device="cpu")
+    cfg = dataclasses.replace(psvc.cfg, max_length=max_length, **{field: other})
+    reqs = _requests(2)
+    if field == "decode_self_attn_impl":
+        greedy = LakoService(cfg, t5, sd, psvc.tokenizer, device="cpu")
+        base = LakoService(dataclasses.replace(cfg, decode_self_attn_impl="allslots"),
+                           t5, sd, psvc.tokenizer, device="cpu")
+        assert greedy.answer_batch(reqs) == base.answer_batch(reqs)
+        beam_cfg = dataclasses.replace(cfg, num_beams=2, decode_kv_dtype="native")
+        beams = LakoService(beam_cfg, t5, sd, psvc.tokenizer, device="cpu")
+        allslots = LakoService(dataclasses.replace(beam_cfg, decode_self_attn_impl="allslots"),
+                               t5, sd, psvc.tokenizer, device="cpu")
+        np.testing.assert_array_equal(beams.generate_tokens(reqs)[1],
+                                      allslots.generate_tokens(reqs)[1])
+    else:
+        fixed = LakoService(cfg, t5, sd, psvc.tokenizer, device="cpu")
+        assert fixed._policy_threshold == 3 and not fixed._policy
+        fixed.answer_batch(reqs)
+        assert list(fixed.policy_decisions) == []
+        for bad, match in ((0, "must be >= 1"), (5, "can never be reached")):
+            with pytest.raises(ValueError, match=match):
+                LakoService(dataclasses.replace(cfg, **{field: bad}), t5, sd,
+                            psvc.tokenizer, device="cpu")
+
+
+def _policy_factories(policy="auto", threshold=3, batch_size=4, num_beams=1):
+    """The JAX package's engine_policy test setup (tests/test_serve.py): the
+    constructors of the JAX service and of the port's, with the same
+    weights."""
+    jtok = make_tokenizer()
+    kw = dict(vocab_size=jtok.vocab_size, d_model=32, d_kv=8, d_ff=64, num_layers=1,
+              num_decoder_layers=1, num_heads=2, relative_attention_num_buckets=8,
+              dropout_rate=0.0)
+    data = dict(n_context=2, text_maxlength=16, answer_maxlength=4, stream=2)
+    params = JaxFiDT5(jax_config.T5Config(**kw)).init(
+        jax.random.PRNGKey(0), np.zeros((1, 2, 16), np.int32), np.ones((1, 2, 16), bool),
+        np.zeros((1, 4), np.int32))["params"]
+    common = dict(batch_size=batch_size, max_length=6, n_context=2, dtype="float32",
+                  engine_policy=policy, policy_chunked_min_occupancy=threshold,
+                  decode_chunk_size=2, num_beams=num_beams)
+    return (lambda: JaxLakoService(
+                JaxServiceConfig(data=jax_config.ReaderDataConfig(**data), **common),
+                jax_config.T5Config(**kw), params, jtok),
+            lambda: LakoService(
+                ServiceConfig(data=port_config.ReaderDataConfig(**data), **common),
+                port_config.T5Config(**kw), params_from_jax(params), _port_tokenizer(),
+                device="cpu"))
+
+
+def _policy_services(**kw):
+    return tuple(build() for build in _policy_factories(**kw))
+
+
+def _port_warnings(caplog):
+    return " ".join(r.getMessage() for r in caplog.records if r.name == "lako_tpu_torch")
+
+
+POLICY_REQUESTS = [{"question": f"what sound does animal {i} make?", "caption": "an animal",
+                    "fact": [{"sentence": "a cow says moo.", "id": 1}]} for i in range(4)]
+
+
+def test_engine_policy_auto_matches_jax():
+    """engine_policy="auto": full-length below the occupancy threshold,
+    chunked at or above it; the decisions and the answers equal the JAX
+    service's, and the "fixed" policy records none."""
+    jsvc, psvc = _policy_services()
+    engine = psvc._generate.__self__      # one engine runs both programs
+    assert engine.chunk_size == 2
+    for svc in (jsvc, psvc):
+        svc.low = svc.answer_batch(POLICY_REQUESTS[:1])
+        if svc is psvc:
+            assert engine.last_chunks == 1    # full length: one chunk of 4 steps
+        svc.high = svc.answer_batch(POLICY_REQUESTS)
+    assert list(psvc.policy_decisions) == list(jsvc.policy_decisions) == [
+        ("full", 1), ("chunked", 4)]
+    assert psvc.low == jsvc.low and psvc.high == jsvc.high
+    assert psvc.high[0]["answer"] == psvc.low[0]["answer"]
+    fixed = _policy_factories("fixed")[1]()
+    fixed.answer_batch(POLICY_REQUESTS)
+    assert list(fixed.policy_decisions) == []
+
+
+def test_engine_policy_validation_matches_jax(caplog):
+    """The three validations, as the JAX service makes them: a threshold
+    below 1 and an explicit threshold the batch size cannot reach raise with
+    the JAX message; the default out of reach warns, citing no TPU number;
+    an unknown policy raises; beam search under "auto" warns and runs."""
+    for kw in (dict(threshold=0), dict(batch_size=8, threshold=32), dict(policy="adaptive")):
+        build_jax, build_port = _policy_factories(**kw)
+        with pytest.raises(ValueError) as want:
+            build_jax()
+        with pytest.raises(ValueError) as got:
+            build_port()
+        assert str(got.value) == str(want.value)
+    with caplog.at_level(logging.WARNING):
+        jsvc, psvc = _policy_services(threshold=None, batch_size=4)
+    assert psvc._policy_threshold == jsvc._policy_threshold == 5
+    assert "out of reach" in _port_warnings(caplog)
+    assert "artifacts" not in _port_warnings(caplog)
+    jsvc, psvc = _policy_services(threshold=None, batch_size=12)
+    assert psvc._policy_threshold == jsvc._policy_threshold == 6
+    caplog.clear()
+    with caplog.at_level(logging.WARNING):
+        jsvc, psvc = _policy_services(num_beams=2)
+    assert "runs the beam engine unconditionally" in _port_warnings(caplog)
+    assert not psvc._policy
+    assert psvc.answer_batch(POLICY_REQUESTS) == jsvc.answer_batch(POLICY_REQUESTS)
+    assert list(psvc.policy_decisions) == []
 
 
 @pytest.mark.parametrize("name", ["T5Config", "ReaderDataConfig", "OptimConfig",
@@ -221,7 +323,9 @@ def test_port_imports_no_jax():
             "'lako_tpu_torch.')]; "
             "[importlib.import_module(n) for n in names]; "
             "assert {'lako_tpu_torch.serve', 'lako_tpu_torch.ops.flash_attention', "
-            "'lako_tpu_torch.ops.adam8_kernel', 'lako_tpu_torch.train.optim8'} <= set(names), "
+            "'lako_tpu_torch.ops.adam8_kernel', 'lako_tpu_torch.train.optim8', "
+            "'lako_tpu_torch.models.t5.decode', 'lako_tpu_torch.models.t5.beam', "
+            "'lako_tpu_torch.models.t5.beam_engine'} <= set(names), "
             "names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'lako_tpu', 'regex', 'transformers')]; "
