@@ -80,12 +80,27 @@
    d. train-step examples/s with the kernels and without, and AdamW against
       AdamW8bit with its peak device memory (host clock, synchronized,
       first step excluded).
-7. After every timed phase, under torch.profiler: a new chunked service
+7. Reader pipeline, at t5-large width on the streamed route with AdamW8bit,
+   through ``lako_tpu_torch.pipeline.cli.main`` in this process:
+   ``build-tokenizer``; ``train-reader`` for 2 epochs with checkpoints and a
+   profiler trace of steps 3-5 (the trace holds K1, K2a/K2b/K2c and K5; the
+   wrapper counts are the 24 steps' and the evals'; ``last`` and ``latest``
+   written, ``best_dev`` if and only if an epoch's EM beat 0; each save's GB
+   and seconds); ``last`` loaded into fresh templates, params, 8-bit codes
+   and scales bitwise the trained state's (GB/s of the load); a full resume
+   and a warm start for 1 epoch (final steps 36 and 12); ``eval-reader
+   --write-results --write-crossattention-scores`` (the JAX stage's keys,
+   finite fact scores, each example's summing to 1 within 1e-5);
+   ``make_generate_and_score_fn`` on the first eval batch against
+   ``make_best_generate_fn``'s tokens and the numpy aggregation of its
+   step-0 logits (rtol 1e-5); ``eval-reader`` answers/s over the 96 training
+   examples with and without score capture.
+8. After every timed phase, under torch.profiler: a new chunked service
    serves the 20 requests; the kernel wrappers' counts (the launches a
    capture records count once, a replay calls no wrapper) and the K3
    kernels that ran on the card, graph replays included, each against the
    count the batches' chunks imply; then the kernels of one decode step.
-8. Prints the kernel summary as one JSON line, the nvidia-smi line again,
+9. Prints the kernel summary as one JSON line, the nvidia-smi line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0. Without a CUDA device it exits
@@ -94,16 +109,20 @@ with code 2 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
 import importlib.util
+import io
 import json
+import logging
 import math
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -1705,6 +1724,279 @@ def run_training(dev):
     return launches
 
 
+# the kernel functions (csrc/) each wrapper of the training path launches,
+# as named in a profiler trace
+TRACE_KERNELS = {"streamed_attention": "streamed_fwd_", "streamed_attention_bwd_dkdv": "bwd_dkdv",
+                 "streamed_attention_bwd_dq": "bwd_dq", "streamed_attention_bwd_drel": "bwd_drel",
+                 "fused_adam8_update_leaves": "adam8_update_leaves_kernel"}
+RESULT_KEYS = ["answers_per_sec", "em", "include_em", "stem_em", "total"]    # stages.py
+RESULT_ROW_KEYS = ["answer", "fact", "img_id", "include_score", "question", "real answers",
+                   "score", "stem_score", "target"]
+SCORE_SUM_TOL = 1e-5
+SCORE_RTOL = 1e-5
+
+
+def cli(argv):
+    """``lako_tpu_torch.pipeline.cli.main(argv)`` in this process; returns
+    the JSON object it prints last."""
+    from lako_tpu_torch.pipeline.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    for handler in logging.getLogger("lako_tpu_torch").handlers:   # init_logger's, on buf
+        handler.setStream(sys.stdout)
+    out = buf.getvalue().strip().splitlines()
+    log("\n".join(f"  | {line}" for line in out[:-1]))
+    return json.loads(out[-1])
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def trace_kernels(trace_dir: Path) -> dict:
+    """Kernel launches by wrapper name in the one Chrome trace of a directory."""
+    (trace,) = list(trace_dir.iterdir())
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {w: sum(k in n for n in names) for w, k in TRACE_KERNELS.items()}
+
+
+def same_tree(what, got, want) -> int:
+    """Every tensor and number of two flattened trees equal (got on the CPU,
+    want anywhere); returns the bytes compared."""
+    from lako_tpu_torch.core.checkpoint import flatten_tree
+
+    g, w = flatten_tree(got), flatten_tree(want)
+    if sorted(g) != sorted(w):
+        raise AssertionError(f"{what}: the loaded keys differ from the trained state's")
+    n, bad = 0, []
+    for k, v in w.items():
+        if isinstance(v, torch.Tensor):
+            n += v.numel() * v.element_size()
+            if g[k].dtype != v.dtype or not torch.equal(g[k].to(v.device), v):
+                bad.append(k)
+        elif g[k] != v:
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} entries differ, e.g. {bad[:3]}")
+    return n
+
+
+def run_reader_pipeline(dev):
+    """The reader's two pipeline stages at t5-large width through the CLI
+    (lako_tpu_torch.pipeline.cli.main in this process), in a temporary
+    directory: build-tokenizer; train-reader (2 epochs, AdamW8bit, the
+    streamed route, checkpoints, a profiler trace of steps 3-5); the
+    ``last`` checkpoint loaded into fresh templates, bitwise; a full resume
+    and a warm start; eval-reader with --write-results and
+    --write-crossattention-scores; make_generate_and_score_fn on the first
+    eval batch against make_best_generate_fn and the numpy aggregation of
+    its step-0 logits; eval answers/s with and without score capture.
+    Returns the train-reader run's launches."""
+    from lako_tpu_torch.core import checkpoint as ckpt_mod
+    from lako_tpu_torch.core.config import (
+        AttentionSignalConfig,
+        OptimConfig,
+        ReaderDataConfig,
+        ReaderTrainConfig,
+    )
+    from lako_tpu_torch.data import ReaderCollator, ReaderDataset
+    from lako_tpu_torch.models.t5 import init_fid_t5, jax_param_paths
+    from lako_tpu_torch.models.t5.decode import make_best_generate_fn, make_generate_and_score_fn
+    from lako_tpu_torch.pipeline import stages
+    from lako_tpu_torch.signal import aggregate_fact_scores
+    from lako_tpu_torch.text.tokenizer import load_tokenizer
+    from lako_tpu_torch.train import reader
+    from lako_tpu_torch.train.optim import make_optimizer
+
+    t_phase = time.perf_counter()
+    _, train, evals = train_fixture()
+    n_facts = len(train[0]["fact"])
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        (tmp / "train.json").write_text(json.dumps(train))
+        (tmp / "eval.json").write_text(json.dumps(evals))
+        out = cli(["build-tokenizer", "--from-json", str(tmp / "train.json"), "--out",
+                   str(tmp / "tok.json")])
+        tok = load_tokenizer(str(tmp / "tok.json"))
+        t5 = train_t5(tok, "streamed")
+        cfg = ReaderTrainConfig(
+            model_size="large", per_device_batch_size=8, eval_batch_size=8,
+            epochs=TRAIN_EPOCHS, early_stop=TRAIN_EPOCHS, eval_max_length=20, use_remat=True,
+            dtype="bfloat16", param_dtype="float32", seed=SEED,
+            data=ReaderDataConfig(n_context=n_facts), optim=OptimConfig(optim="adamw8bit"),
+            profile_dir=str(tmp / "profile"), checkpoint_dir=str(tmp / "ckpt"), name="reader")
+        (tmp / "t5.json").write_text(json.dumps(dataclasses.asdict(t5)))
+        (tmp / "cfg.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+        common = ["--config", str(tmp / "cfg.json"), "--t5-config", str(tmp / "t5.json"),
+                  "--tokenizer", str(tmp / "tok.json")]
+        log(f"reader pipeline: build-tokenizer {out}; t5-large ({t5.num_layers}+"
+            f"{t5.num_decoder_layers} layers, d_model {t5.d_model}, vocab {t5.vocab_size}), "
+            f"streamed kernels (flash_min_length=128), B=8, N=2, L=130, bf16 compute, f32 "
+            f"masters, remat, adamw8bit, {len(train)} train / {len(evals)} eval examples, "
+            f"{cfg.epochs} epochs, eval_max_length {cfg.eval_max_length}, n_context {n_facts}")
+
+        # train-reader, keeping the trained state and timing each save
+        kept, saves = {}, []
+        train_reader, save_checkpoint = stages.train_reader, reader.save_checkpoint
+
+        def keep(*args, **kw):
+            kept["result"] = train_reader(*args, **kw)
+            return kept["result"]
+
+        def timed_save(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save_checkpoint(*args, **kw)
+            saves.append((Path(path).name, dir_bytes(path), time.perf_counter() - t0))
+            return path
+
+        stages.train_reader, reader.save_checkpoint = keep, timed_save
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            trained = cli(["train-reader", *common, "--train-data", str(tmp / "train.json"),
+                           "--eval-data", str(tmp / "eval.json")])
+        finally:
+            stages.train_reader, reader.save_checkpoint = train_reader, save_checkpoint
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        result = kept.pop("result")
+        steps = trained["steps"]
+        log(f"  train-reader: {steps} steps, {len(trained['history'])} evals in "
+            f"{seconds:.1f} s; best_dev_em {trained['best_dev_em']}; history "
+            f"{[{k: round(v, 4) for k, v in h.items()} for h in trained['history']]}")
+        if steps != TRAIN_EPOCHS * len(train) // cfg.per_device_batch_size:
+            raise AssertionError(f"train-reader ran {steps} steps")
+        eval_batches = -(-len(evals) // cfg.eval_batch_size) * len(trained["history"])
+        expected = {n: c * t5.num_layers * steps for n, c in STEP_LAUNCHES["streamed"].items()}
+        expected["streamed_attention"] += t5.num_layers * eval_batches
+        expected["fused_adam8_update_leaves"] = steps
+        check_counts("train-reader (streamed route, adamw8bit)", launches, expected)
+        losses = [h["loss"] for h in trained["history"]]
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+            raise AssertionError(f"the loss did not fall: {losses}")
+        ckpt = tmp / "ckpt" / "reader" / "checkpoint"
+        names = sorted(p.name for p in ckpt.iterdir())
+        want = sorted(["last", "latest"] + ["best_dev"] * any(
+            h["em"] > 0 for h in trained["history"]))
+        log(f"  checkpoints: {names} (latest -> {(ckpt / 'latest').resolve().name}); expected "
+            f"{want}")
+        if names != want or (ckpt / "latest").resolve() != (ckpt / "last").resolve():
+            raise AssertionError("train-reader wrote other checkpoints than expected")
+        for name, n_bytes, secs in saves:
+            log(f"  save {name}: {n_bytes / 1e9:.3f} GB in {secs:.2f} s, "
+                f"{n_bytes / 1e9 / secs:.2f} GB/s (host clock, torch.save to {tmp_dir})")
+        traced = trace_kernels(tmp / "profile")
+        per_step = {n: c * t5.num_layers for n, c in STEP_LAUNCHES["streamed"].items()}
+        per_step["fused_adam8_update_leaves"] = 1
+        log(f"  profiler trace of steps 3-5: kernels {traced}; 3 steps' wrapper calls "
+            f"{ {n: 3 * c for n, c in per_step.items()} }")
+        if any(traced[n] < 3 * c for n, c in per_step.items()):
+            raise AssertionError("the trace lacks kernels of the training path")
+
+        # the last save into fresh templates, bitwise
+        fresh = init_fid_t5(t5, torch.Generator(device=dev).manual_seed(SEED + 1))
+        fresh_opt = make_optimizer(cfg.optim).init(reader.model_params(fresh))
+        t0 = time.perf_counter()
+        params, opt, meta = ckpt_mod.load_checkpoint(str(ckpt / "last"), fresh.state_dict(),
+                                                     fresh_opt)
+        secs = time.perf_counter() - t0
+        n_bytes = dir_bytes(ckpt / "last") - (ckpt / "last" / "meta.json").stat().st_size
+        paths = jax_param_paths(fresh)
+        del fresh, fresh_opt
+        n_params = same_tree("params", {paths[k]: v for k, v in params.items()},
+                             result.state.params)
+        n_opt = same_tree("optimizer state", opt, result.state.opt_state)
+        want_meta = {"step": steps, "best_eval_metric": trained["best_dev_em"]}
+        log(f"  load last: {n_bytes / 1e9:.3f} GB in {secs:.2f} s, {n_bytes / 1e9 / secs:.2f} "
+            f"GB/s (host clock, torch.load to the CPU); {len(params)} params "
+            f"({n_params / 1e9:.3f} GB) and the optimizer state ({n_opt / 1e9:.3f} GB: the "
+            f"8-bit codes and scales, counts) bitwise equal to the trained state; meta {meta}")
+        if meta != want_meta:
+            raise AssertionError(f"meta {meta}, expected {want_meta}")
+        del params, opt, result
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # a full resume and a warm start, one epoch each
+        for reset, want_step in ((False, steps + steps // TRAIN_EPOCHS),
+                                 (True, steps // TRAIN_EPOCHS)):
+            t0 = time.perf_counter()
+            run = reader.train_reader(cfg.replace(epochs=1, profile_dir=None), train, evals,
+                                      tok, t5_config=t5, save_checkpoints=False,
+                                      resume_from=str(tmp / "ckpt" / "reader"),
+                                      reset_params=reset, device=dev)
+            log(f"  resume (reset_params={reset}) for 1 epoch: final_step {run.final_step} "
+                f"(expected {want_step}), optimizer count {run.state.opt_state[1].count}, "
+                f"{time.perf_counter() - t0:.1f} s")
+            if run.final_step != want_step or run.state.opt_state[1].count != want_step:
+                raise AssertionError("the resumed run did not go on from the expected step")
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # eval-reader with results and scores
+        scored = cli(["eval-reader", *common, "--eval-data", str(tmp / "eval.json"),
+                      "--model-path", str(tmp / "ckpt" / "reader" / "checkpoint" / "last"),
+                      "--write-results", str(tmp / "results.json"),
+                      "--write-crossattention-scores", str(tmp / "scored.json")])
+        rows = json.loads((tmp / "results.json").read_text())
+        examples = json.loads((tmp / "scored.json").read_text())
+        sums = [sum(f["score"] for f in ex["fact"][:n_facts]) for ex in examples]
+        finite = all(math.isfinite(f["score"]) for ex in examples
+                     for f in ex["fact"][:min(n_facts, len(ex["fact"]))])
+        log(f"  eval-reader: {scored}; {len(rows)} result rows, {len(examples)} scored "
+            f"examples, score sums {min(sums):.7f}..{max(sums):.7f}")
+        if (sorted(scored) != RESULT_KEYS or any(sorted(r) != RESULT_ROW_KEYS for r in rows)
+                or len(examples) != len(evals) or not finite
+                or max(abs(x - 1.0) for x in sums) > SCORE_SUM_TOL
+                or any(sorted(ex) != sorted(ev) for ex, ev in zip(examples, evals))):
+            raise AssertionError("eval-reader's outputs are not the JAX stage's")
+
+        # the card's generate-and-score on the first eval batch
+        model = init_fid_t5(t5, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+        model.load_state_dict(ckpt_mod.load_checkpoint(str(ckpt / "last"),
+                                                       model.state_dict())[0])
+        ds = ReaderDataset(evals, cfg.data, seed=cfg.seed)
+        batch = ReaderCollator(cfg.data, tok)([ds[i] for i in range(cfg.eval_batch_size)])
+        ids, mask, spans = (torch.from_numpy(a).to(dev) for a in (
+            batch.passage_ids, batch.passage_mask, batch.fact_spans))
+        signal_cfg = AttentionSignalConfig(n_context=n_facts)
+        tokens, fact_scores = make_generate_and_score_fn(
+            model, signal_cfg, max_length=cfg.eval_max_length)(ids, mask, spans)
+        want_tokens, xl = make_best_generate_fn(model, max_length=cfg.eval_max_length,
+                                                collect_cross_scores=True)(ids, mask)
+        want = aggregate_fact_scores(xl.cpu().numpy(), batch.passage_mask, batch.fact_spans,
+                                     signal_cfg)
+        got = fact_scores.cpu().numpy()
+        err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+        log(f"  make_generate_and_score_fn on the first eval batch: tokens "
+            f"{'equal' if torch.equal(tokens, want_tokens) else 'DIFFER'} to "
+            f"make_best_generate_fn's; scores {tuple(got.shape)} within rel {err:.3e} of the "
+            f"numpy aggregation of the engine's step-0 logits (bound {SCORE_RTOL:g})")
+        if not torch.equal(tokens, want_tokens) or err > SCORE_RTOL:
+            raise AssertionError("make_generate_and_score_fn disagrees on the card")
+        del model, xl
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # eval answers/s on the 96 training examples, with and without scores
+        rates = []
+        for with_scores in (False, True, True, False):
+            extra = ["--write-crossattention-scores", str(tmp / "s.json")] * with_scores
+            out = cli(["eval-reader", *common, "--eval-data", str(tmp / "train.json"),
+                       "--model-path", str(ckpt / "last"), *extra])
+            rates.append(out["answers_per_sec"])
+        log(f"  eval-reader answers/s over {len(train)} examples (host clock over the decode "
+            f"loop, B=8, max_length 20, engine with CUDA graphs): without scores "
+            f"{rates[0]:.2f}, {rates[3]:.2f}; with scores {rates[1]:.2f}, {rates[2]:.2f}")
+    log(f"reader pipeline phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return launches
+
+
 # the main-path run each kernel's launch count comes from: (phase, route)
 LAUNCHES_FROM = {"streamed_attention": ("training", "streamed"),
                  "streamed_attention_bwd_dkdv": ("training", "streamed"),
@@ -1762,6 +2054,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     runs["training"] = run_training(dev)        # K1 + K2a/K2b/K2c, or K4 + K5 (once a step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["pipeline"] = run_reader_pipeline(dev)  # K1 + K2a/K2b/K2c + K5 through the CLI
     gc.collect()
     torch.cuda.empty_cache()
     runs["profiled"] = run_profiled(dev)         # K3 in captured chunks, from a trace

@@ -1,5 +1,5 @@
-"""Typed configuration: the part of lako_tpu/core/config.py that serving and
-reader training need.
+"""Typed configuration: the part of lako_tpu/core/config.py that serving,
+reader training and the attention signal need.
 
 A copy, not an import: ``lako_tpu.core`` pulls in jax when imported. Field
 names and defaults equal the JAX package's (pinned by
@@ -16,6 +16,20 @@ from typing import Optional
 
 
 class _ConfigBase:
+    @classmethod
+    def from_dict(cls, d: dict):
+        """The config from a JSON dict; nested configs from nested dicts."""
+        kwargs = {}
+        for f in dataclasses.fields(cls):
+            if f.name not in d:
+                continue
+            v = d[f.name]
+            t = globals().get(f.type) if isinstance(f.type, str) else f.type
+            if isinstance(v, dict) and t is not None and dataclasses.is_dataclass(t):
+                v = t.from_dict(v)
+            kwargs[f.name] = v
+        return cls(**kwargs)
+
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
 
@@ -197,3 +211,15 @@ class ReaderTrainConfig(_ConfigBase):
     mesh: MeshConfig = field(default_factory=MeshConfig)
     checkpoint_dir: str = "./checkpoint"
     name: str = "experiment"
+
+
+@dataclass(frozen=True)
+class AttentionSignalConfig(_ConfigBase):
+    """Cross-attention score aggregation (signal/aggregate.py)."""
+
+    attention_score_style: str = "mean"  # "mean" | "max" | "21mean"
+    use_last_half_layer_attention: bool = False
+    ans_attention: bool = False
+    stream: int = 2
+    n_context: int = 10
+    pad_score: float = -5.0  # filler for missing facts

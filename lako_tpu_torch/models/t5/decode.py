@@ -13,10 +13,8 @@ paths (this module, models/t5/beam.py) otherwise.
 
 Step 0 runs on its own and returns the (B, layers, heads, N·L) pre-softmax
 cross-attention logits when asked: the reference stores only the first
-decode step's scores.
-
-Not ported yet: ``make_generate_and_score_fn`` (it needs the attention
-signal's aggregation, ROADMAP item 6).
+decode step's scores. ``make_generate_and_score_fn`` aggregates them into
+per-fact scores on the same device (signal/aggregate.py).
 """
 
 from __future__ import annotations
@@ -188,7 +186,28 @@ def make_best_generate_fn(
 def make_generate_and_score_fn(model: FiDT5, signal_cfg, max_length: int = 50,
                                backend: str = "auto", kv_dtype: str = "native",
                                weights_dtype: str = "native", chunk_size=None) -> Callable:
-    """Generate plus on-device fact-score aggregation: not ported yet."""
-    raise NotImplementedError(
-        "make_generate_and_score_fn needs the attention signal's aggregation "
-        "(signal/aggregate.py), not ported yet (ROADMAP item 6)")
+    """Generate plus fact-score aggregation on the model's device:
+    (input_ids, mask, fact_spans) → (tokens, fact_scores (B, n_context)).
+
+    Only the tokens and n_context floats per example leave the device, never
+    the (B, layers, heads, N·L) logits. The engine route where the model
+    allows it, as :func:`make_best_generate_fn` dispatches; the
+    layer-unrolled ``greedy_generate`` otherwise."""
+    from lako_tpu_torch.signal.aggregate import aggregate_fact_scores_device
+
+    if backend == "engine" and not engine_supported(model.config):
+        raise ValueError(
+            "decode_backend='engine' but the engine does not support this "
+            "configuration (FiDO cross_attention_stride)")
+    if backend != "flax" and engine_supported(model.config):
+        gen = make_best_generate_fn(
+            model, max_length=max_length, collect_cross_scores=True, backend=backend,
+            kv_dtype=kv_dtype, weights_dtype=weights_dtype, chunk_size=chunk_size)
+    else:
+        gen = make_generate_fn(model, max_length=max_length, collect_cross_scores=True)
+
+    def fn(input_ids, mask, fact_spans):
+        tokens, xl = gen(input_ids, mask)
+        return tokens, aggregate_fact_scores_device(xl, mask, fact_spans, signal_cfg)
+
+    return fn

@@ -1,0 +1,4 @@
+from lako_tpu_torch.pipeline.cli import main
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,9 @@
 """Word-level tokenizer: the framework-free part of lako_tpu/text/tokenizer.py.
 
 A copy, not an import: ``lako_tpu.text`` imports ``regex`` when imported.
-``HFTokenizer`` (a ``tokenizers`` adapter) is not ported yet. Pinned to the
-original by tests/test_torch_serve.py.
+``HFTokenizer`` (a ``tokenizers`` adapter) is not ported yet (ROADMAP item 9):
+``load_tokenizer`` reads the word-vocab JSON only. Pinned to the original by
+tests/test_torch_serve.py.
 """
 
 from __future__ import annotations
@@ -108,3 +109,20 @@ class WordVocabTokenizer(BaseTokenizer):
     def load(cls, path: str):
         d = json.loads(Path(path).read_text())
         return cls(d["vocab"], style=d["style"])
+
+
+def load_tokenizer(path_or_dir: str, style: str = "t5") -> BaseTokenizer:
+    """Load a saved tokenizer: a word-vocab JSON, or a directory holding
+    ``word_vocab.json``. ``style`` is the JAX function's argument for HF
+    tokenizers; a word vocabulary carries its own style."""
+    p = Path(path_or_dir)
+    if p.is_dir():
+        for name in ("tokenizer.json", "word_vocab.json"):
+            if (p / name).exists():
+                p = p / name
+                break
+    d = json.loads(p.read_text())
+    if "vocab" in d and "style" in d:
+        return WordVocabTokenizer.load(str(p))
+    raise NotImplementedError(f"{p} is not a word-vocab tokenizer; HF tokenizers are not "
+                              "ported yet (ROADMAP item 9)")

@@ -10,14 +10,20 @@ kernel K5) and the linear warmup schedule (train/optim.py). Each epoch ends
 with a greedy eval through ``make_best_generate_fn`` and exact match. Both
 loops run on the CUDA card unless given another device.
 
-Not ported yet; each raises ``NotImplementedError``: checkpoints
-(``save_checkpoints=True``), ``resume_from`` and ``profile_dir`` (ROADMAP
-item 4), pipeline parallelism (``mesh.pipe > 1``) and more than one device
-(item 12).
+The run loop is the JAX package's: ``best_dev`` saved on an improvement and
+``last`` every evaluated epoch (core/checkpoint.py, main process only);
+``resume_from`` with ``reset_params`` (weights only, or the optimizer, step
+and best metric too); a ``preempted`` save and exit when the preemption flag
+is up (core/preemption.py); and a ``torch.profiler`` trace of this process's
+steps 3-5 into ``profile_dir`` (core/profiling.py).
+
+Not ported yet; each raises ``NotImplementedError``: pipeline parallelism
+(``mesh.pipe > 1``) and more than one device (ROADMAP item 12).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -25,9 +31,18 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from lako_tpu_torch.core import preemption
+from lako_tpu_torch.core.checkpoint import (
+    flatten_tree,
+    load_checkpoint,
+    save_checkpoint,
+    unflatten_tree,
+)
 from lako_tpu_torch.core.config import ReaderTrainConfig, t5_config_for_size
 from lako_tpu_torch.core.device import resolve_device
+from lako_tpu_torch.core.distributed import is_main
 from lako_tpu_torch.core.logging import get_logger
+from lako_tpu_torch.core.profiling import start_trace
 from lako_tpu_torch.data import ReaderCollator, ReaderDataset, batch_iterator
 from lako_tpu_torch.models.t5 import FiDT5, init_fid_t5, jax_param_paths
 from lako_tpu_torch.models.t5.decode import make_best_generate_fn
@@ -102,13 +117,30 @@ def evaluate_reader(generate_fn: Callable, dataset: ReaderDataset,
 def _apply_param_dtype(cfg: ReaderTrainConfig, model: FiDT5, logger) -> FiDT5:
     """Master-parameter dtype policy: "float32" keeps f32 masters, "bfloat16"
     casts them (and so the Adam moments, which take the params' dtype) to
-    bf16. Both cast, whatever the parameters held before."""
+    bf16. Both cast, whatever the parameters held before; a restore copies
+    into these tensors, which casts the checkpoint's values to the policy."""
     if cfg.param_dtype in ("float32", "f32"):
         return model.to(torch.float32)
     if cfg.param_dtype not in ("bfloat16", "bf16"):
         raise ValueError(f"param_dtype must be float32|bfloat16, got {cfg.param_dtype!r}")
     logger.info("param_dtype=bfloat16: bf16 master params and moments")
     return model.to(torch.bfloat16)
+
+
+def _cast_opt_like(template_opt, restored_opt):
+    """The restored optimizer state on the template's device, its float
+    tensors in the template's dtypes: a checkpoint keeps the dtype of the run
+    that wrote it, and the param_dtype policy of this run decides."""
+    template = flatten_tree(template_opt)
+
+    def cast(key, v):
+        if not isinstance(v, torch.Tensor):
+            return v
+        t = template[key]
+        return v.to(device=t.device, dtype=t.dtype if v.is_floating_point() else v.dtype)
+
+    return unflatten_tree(template_opt, {k: cast(k, v)
+                                         for k, v in flatten_tree(restored_opt).items()})
 
 
 @dataclass
@@ -120,16 +152,7 @@ class ReaderTrainResult:
     state: TrainState
 
 
-def _refuse_unported(cfg: ReaderTrainConfig, mesh, save_checkpoints: bool,
-                     resume_from: Optional[str]) -> None:
-    if save_checkpoints:
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP item 4); "
-                                  "pass save_checkpoints=False")
-    if resume_from is not None:
-        raise NotImplementedError("resume_from: checkpoints are not ported yet (ROADMAP item 4)")
-    if cfg.profile_dir is not None:
-        raise NotImplementedError("profile_dir (torch.profiler traces) is not ported yet "
-                                  "(ROADMAP item 4)")
+def _refuse_unported(cfg: ReaderTrainConfig, mesh) -> None:
     if cfg.mesh.pipe > 1:
         raise NotImplementedError("mesh.pipe > 1: pipeline parallelism is not ported yet "
                                   "(ROADMAP item 12)")
@@ -149,15 +172,22 @@ def train_reader(
     mesh=None,
     save_checkpoints: bool = True,
     resume_from: Optional[str] = None,
+    reset_params: bool = True,
     device: Optional[torch.device] = None,
 ) -> ReaderTrainResult:
     """Train the FiD reader on ``device`` (the CUDA card unless given; it
-    raises without one) for ``cfg.epochs``
-    epochs with early stopping on dev EM. ``init_params`` is a state_dict of
-    the port's FiDT5 (``params_from_jax`` gives one from a JAX tree); without
-    it the model is drawn by ``init_fid_t5`` from a generator seeded with
-    ``cfg.seed``."""
-    _refuse_unported(cfg, mesh, save_checkpoints, resume_from)
+    raises without one) for ``cfg.epochs`` epochs with early stopping on dev
+    EM. ``init_params`` is a state_dict of the port's FiDT5
+    (``params_from_jax`` gives one from a JAX tree); without it the model is
+    drawn by ``init_fid_t5`` from a generator seeded with ``cfg.seed``.
+
+    resume_from: a checkpoint directory (or a run's, for its ``latest``).
+    ``reset_params=True`` restores the weights only and starts the optimizer
+    fresh at step 0 (a warm start); False restores the optimizer state, step
+    and best metric too (a crash or preemption resume). The restored values
+    are copied into the model's own parameters, which the train state holds
+    and the optimizer updates in place."""
+    _refuse_unported(cfg, mesh)
     logger = get_logger()
     device = resolve_device(device)
     t5_cfg = t5_config or t5_config_for_size(cfg.model_size, vocab_size=tokenizer.vocab_size)
@@ -180,20 +210,53 @@ def train_reader(
         model.load_state_dict(init_params)
     model = _apply_param_dtype(cfg, model, logger)
     state = TrainState.create(model_params(model), tx)
+    best_dev_em, step = 0.0, 0
+    if resume_from is not None:
+        live = model.state_dict()
+        params, opt_state, meta = load_checkpoint(
+            resume_from, live, None if reset_params else state.opt_state)
+        with torch.no_grad():
+            for name, value in params.items():
+                live[name].copy_(value)
+        if not reset_params and opt_state is not None:
+            step = int(meta.get("step", 0))
+            best_dev_em = float(meta.get("best_eval_metric", 0.0))
+            state = dataclasses.replace(state, step=step,
+                                        opt_state=_cast_opt_like(state.opt_state, opt_state))
+        elif not reset_params:
+            logger.warning("requested optimizer resume but checkpoint has no optimizer "
+                           "state; starting fresh")
     train_step = make_reader_train_step(model, backend=cfg.train_backend)
+    ckpt_dir = f"{cfg.checkpoint_dir}/{cfg.name}"
 
-    best_dev_em, step, patience, epoch = 0.0, 0, 0, 0
+    def save(name: str) -> None:
+        if save_checkpoints and is_main():
+            save_checkpoint(ckpt_dir, name, model.state_dict(), state.opt_state, step,
+                            best_dev_em)
+
+    patience, epoch = 0, 0
     history: List[Dict[str, float]] = []
+    # profile_dir: trace local steps 3-5 of this process, counted from the
+    # process's first step, not from a restored step
+    stop_trace, local_step = None, 0
     for epoch in range(1, cfg.epochs + 1):
         t0 = time.time()
         losses = []
         for batch in batch_iterator(train_ds, batch_size, collator, shuffle=True,
                                     seed=cfg.seed + epoch, drop_last=True, prefetch=2):
+            if cfg.profile_dir is not None and local_step == 2:
+                stop_trace = start_trace(cfg.profile_dir)
             ids, mask, labels = (torch.from_numpy(a).to(device) for a in (
                 batch.passage_ids, batch.passage_mask, batch.labels))
             state, loss = train_step(state, ids, mask, labels, cfg.seed)
             losses.append(loss)
             step += 1
+            local_step += 1
+            if stop_trace is not None and local_step >= 5:
+                stop_trace()
+                stop_trace = None
+            if preemption.preempted():
+                preemption.handle_preemption(lambda: save("preempted"))
         train_loss = float(torch.stack(losses).float().mean()) if losses else float("nan")
 
         if epoch % cfg.eval_every and epoch != cfg.epochs:
@@ -209,7 +272,7 @@ def train_reader(
         generate_fn = make_best_generate_fn(
             model, max_length=cfg.eval_max_length, backend=cfg.decode_backend,
             kv_dtype=cfg.decode_kv_dtype, weights_dtype=cfg.decode_weights_dtype,
-            chunk_size=cfg.decode_chunk_size)
+            chunk_size=cfg.decode_chunk_size, self_attn_impl=cfg.decode_self_attn_impl)
         ev = evaluate_reader(generate_fn, eval_ds, collator, tokenizer, cfg.eval_batch_size,
                              device)
         dev_em = ev["em"]
@@ -220,7 +283,13 @@ def train_reader(
         if dev_em > best_dev_em:
             patience = 0
             best_dev_em = dev_em
+            save("best_dev")
+        # refreshed every evaluated epoch for a crash or preemption resume
+        save("last")
         if patience > cfg.early_stop:
             logger.info("early stop in epoch %d", epoch)
             break
+
+    if stop_trace is not None:   # a run shorter than 5 steps
+        stop_trace()
     return ReaderTrainResult(best_dev_em, step, epoch, history, state)

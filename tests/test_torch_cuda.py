@@ -768,3 +768,73 @@ def test_adamw8bit_train_step_on_the_fused_route(cuda_device):
     for name, a in results[0].items():
         moved = float((results[1][name] - init[name]).abs().max())
         assert float((a - results[1][name]).abs().max()) <= 1e-4 * max(moved, 1e-3) + 1e-6, name
+
+
+def test_adam8_state_checkpoint_round_trip(cuda_device, tmp_path):
+    """The K5 state after two updates on the card, saved and loaded into a
+    fresh template, moved back to the card: every code and scale bitwise,
+    the flat layout intact, and the next K5 update from it bitwise the next
+    update from the state that was saved."""
+    from lako_tpu_torch.core.checkpoint import flatten_tree, load_checkpoint, save_checkpoint
+    from lako_tpu_torch.train.optim8 import FlatMoments
+    from lako_tpu_torch.train.reader import _cast_opt_like
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    shapes = {"t5/encoder/block_0/self_attn/q/kernel": (256, 512),   # K5's route
+              "t5/encoder/final_ln/weight": (512,), "t5/shared/embedding": (300, 40)}
+    params = {k: torch.randn(s, generator=gen, device=cuda_device) for k, s in shapes.items()}
+    tx = make_optimizer(OptimConfig(optim="adamw8bit", warmup_steps=0, total_steps=10))
+    state = tx.init(params)
+    before = k5.fused_adam8_update_leaves.launches
+    for _ in range(2):
+        grads = {k: torch.randn_like(p) for k, p in params.items()}
+        _, state = tx.update(grads, state, params)
+    assert k5.fused_adam8_update_leaves.launches == before + 2
+    save_checkpoint(str(tmp_path), "k5", params, state, step=2)
+    _, loaded, meta = load_checkpoint(str(tmp_path), params, tx.init(params))
+    loaded = _cast_opt_like(state, loaded)
+    assert meta["step"] == 2 and isinstance(loaded[1].mu, FlatMoments)
+    want, got = flatten_tree(state), flatten_tree(loaded)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        if isinstance(v, torch.Tensor):
+            assert got[k].device == v.device and torch.equal(got[k], v), k
+        else:
+            assert got[k] == v, k
+    grads = {k: torch.randn_like(p) for k, p in params.items()}
+    u1, s1 = tx.update(grads, state, params)
+    u2, s2 = tx.update(grads, loaded, params)
+    for k in u1:
+        assert torch.equal(u1[k], u2[k]), k
+    for a, b in zip(flatten_tree(s1).values(), flatten_tree(s2).values()):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+def test_generate_and_score_on_the_card(cuda_device):
+    """make_generate_and_score_fn on the card, engine route and
+    layer-unrolled route: the tokens of make_best_generate_fn, and scores
+    within rtol 1e-5 of the numpy aggregation of that function's own
+    step-0 logits."""
+    from lako_tpu_torch.core.config import AttentionSignalConfig
+    from lako_tpu_torch.models.t5.decode import (
+        make_best_generate_fn,
+        make_generate_and_score_fn,
+    )
+    from lako_tpu_torch.signal import aggregate_fact_scores
+
+    model, ids, mask = _tiny_decode_model(cuda_device)
+    spans = torch.tensor([[[2, 6], [6, 11], [11, 20]], [[2, 9], [0, 0], [0, 0]],
+                          [[3, 4], [4, 12], [12, 19]], [[2, 20], [0, 0], [0, 0]]],
+                         dtype=torch.int32, device=cuda_device)
+    for style in ("mean", "max", "21mean"):
+        cfg = AttentionSignalConfig(attention_score_style=style, n_context=3)
+        for backend in ("engine", "flax"):
+            tokens, scores = make_generate_and_score_fn(model, cfg, max_length=6,
+                                                        backend=backend)(ids, mask, spans)
+            want_tokens, xl = make_best_generate_fn(model, max_length=6, backend=backend,
+                                                    collect_cross_scores=True)(ids, mask)
+            assert scores.device.type == "cuda" and scores.shape == (4, 3)
+            assert torch.equal(tokens, want_tokens)
+            want = aggregate_fact_scores(xl.cpu().numpy(), mask.cpu().numpy(),
+                                         spans.cpu().numpy(), cfg)
+            np.testing.assert_allclose(scores.cpu().numpy(), want, rtol=1e-5, atol=1e-6)

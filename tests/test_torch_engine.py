@@ -214,13 +214,14 @@ def test_sd_cache_layout_tokens_identical():
 
 
 def test_unported_options_raise():
-    """What the port still refuses: make_generate_and_score_fn (ROADMAP item
-    6), and the engine's invalid settings, as the JAX engine refuses them."""
+    """What the engine refuses, as the JAX engine refuses it; and
+    make_generate_and_score_fn, ported, builds on the engine without
+    raising."""
+    from lako_tpu_torch.core.config import AttentionSignalConfig
     from lako_tpu_torch.models.t5.decode import make_generate_and_score_fn
 
     _, _, model, ids, mask = _make()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        make_generate_and_score_fn(model, None)
+    assert callable(make_generate_and_score_fn(model, AttentionSignalConfig(), backend="engine"))
     with pytest.raises(ValueError, match="kv_dtype"):
         DecodeEngine(model, kv_dtype="int4")
     with pytest.raises(ValueError, match="weights_dtype"):

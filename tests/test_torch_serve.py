@@ -283,7 +283,7 @@ def test_engine_policy_validation_matches_jax(caplog):
 
 
 @pytest.mark.parametrize("name", ["T5Config", "ReaderDataConfig", "OptimConfig",
-                                  "MeshConfig", "ReaderTrainConfig"])
+                                  "MeshConfig", "ReaderTrainConfig", "AttentionSignalConfig"])
 def test_copied_configs_match(name):
     """Same fields, in the same order, with the same defaults (nested
     default factories included)."""
@@ -316,8 +316,8 @@ def test_copied_collator_matches(data):
 
 
 def test_port_imports_no_jax():
-    """Every module of the package imports without jax, flax, regex,
-    transformers or lako_tpu."""
+    """Every module of the package imports without jax, flax, msgpack,
+    regex, nltk, transformers or lako_tpu."""
     code = ("import importlib, pkgutil, sys, lako_tpu_torch; "
             "names = [m.name for m in pkgutil.walk_packages(lako_tpu_torch.__path__, "
             "'lako_tpu_torch.')]; "
@@ -325,10 +325,14 @@ def test_port_imports_no_jax():
             "assert {'lako_tpu_torch.serve', 'lako_tpu_torch.ops.flash_attention', "
             "'lako_tpu_torch.ops.adam8_kernel', 'lako_tpu_torch.train.optim8', "
             "'lako_tpu_torch.models.t5.decode', 'lako_tpu_torch.models.t5.beam', "
-            "'lako_tpu_torch.models.t5.beam_engine'} <= set(names), "
+            "'lako_tpu_torch.models.t5.beam_engine', 'lako_tpu_torch.pipeline.cli', "
+            "'lako_tpu_torch.pipeline.stages', 'lako_tpu_torch.pipeline.__main__', "
+            "'lako_tpu_torch.signal.aggregate', 'lako_tpu_torch.text.stem', "
+            "'lako_tpu_torch.core.checkpoint', 'lako_tpu_torch.core.distributed', "
+            "'lako_tpu_torch.core.preemption', 'lako_tpu_torch.core.profiling'} <= set(names), "
             "names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'lako_tpu', 'regex', 'transformers')]; "
+            "('jax', 'flax', 'msgpack', 'lako_tpu', 'regex', 'nltk', 'transformers')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -310,9 +310,6 @@ def test_train_reader_on_fixture():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(save_checkpoints=True), "item 4"),
-    (dict(resume_from="/nonexistent"), "item 4"),
-    (dict(cfg=dict(profile_dir="/nonexistent")), "item 4"),
     (dict(cfg=dict(mesh=port_config.MeshConfig(pipe=2))), "item 12"),
     (dict(cfg=dict(mesh=port_config.MeshConfig(data=2))), "item 12"),
 ])
@@ -323,6 +320,35 @@ def test_train_reader_unported_options_raise(change, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         train_reader(cfg.replace(**change.get("cfg", {})), make_examples(4), [], _port_tokenizer(),
                      t5_config=t5, **kw)
+
+
+@pytest.mark.parametrize("impl,warns", [("gather", True), ("allslots", False)])
+def test_train_reader_passes_self_attn_impl(impl, warns, caplog):
+    """train_reader hands decode_self_attn_impl to make_best_generate_fn, as
+    the JAX function does: greedy eval warns that it ignores a value other
+    than the default, in the JAX package's words, and stays silent at the
+    default."""
+    from lako_tpu.models.t5.decode import make_best_generate_fn as jax_best_generate_fn
+
+    loggers = [logging.getLogger(n) for n in ("lako_tpu", "lako_tpu_torch")]
+    for lg in loggers:     # a CLI run in this process may have cut propagation
+        lg.addHandler(caplog.handler)
+    try:
+        with caplog.at_level(logging.WARNING):
+            jcfg, jt5 = _fixture_config(jax_config)
+            jax_best_generate_fn(JaxFiDT5(jt5), max_length=4, self_attn_impl=impl)
+            cfg, t5 = _fixture_config(port_config, decode_self_attn_impl=impl)
+            train_reader(cfg.replace(epochs=1), make_examples(4, n_facts=2),
+                         make_examples(2, n_facts=2), _port_tokenizer(), t5_config=t5,
+                         save_checkpoints=False, device="cpu")
+    finally:
+        for lg in loggers:
+            lg.removeHandler(caplog.handler)
+    said = {name: {r.getMessage() for r in caplog.records
+                   if r.name == name and "self_attn_impl" in r.getMessage()}
+            for name in ("lako_tpu", "lako_tpu_torch")}
+    assert said["lako_tpu_torch"] == said["lako_tpu"]
+    assert len(said["lako_tpu"]) == warns
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(shuffle=True, seed=3, drop_last=True),
