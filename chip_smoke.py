@@ -95,13 +95,37 @@
    ``make_best_generate_fn``'s tokens and the numpy aggregation of its
    step-0 logits (rtol 1e-5); ``eval-reader`` answers/s over the 96 training
    examples with and without score capture.
-8. After every timed phase, under torch.profiler: a new chunked service
+8. Retriever pipeline (LaKo's second stage), at bert-base width (12 layers,
+   hidden 768, vocab 30522, indexing_dimension 256, L=130), random weights
+   from ``init_retriever`` (seed 0), through the CLI in this process:
+   ``train-retriever`` with RetrieverTrainConfig's defaults (B=8,
+   n_context 10, bf16 compute, f32 masters, AdamW, dropout 0.1) for 2 epochs
+   on 96 synthetic examples (examples/s over the steps after the first, peak
+   memory, losses, inversions, checkpoint size; a non-finite loss or a
+   missing ``best_dev`` / ``last`` fails); ``embed-facts`` of a seeded
+   corpus of 16,384 sentences in f32 (sentences/s); ``retrieve`` of 96
+   questions with exact, fast and pq (n_docs 500) and ``--small-range``,
+   then ``eval-facts`` (every output in the JAX stage's schema; exact's ids
+   those of a DenseIndex built on the CPU from the same embeddings.npy and
+   question embeddings); and the
+   index at LaKo's scale, 300,600 x 256 seeded f32 rows with one row copied
+   599 times and 2,000 rows copied once, 5,046 queries at k=500: exact held
+   to a float64 oracle on the card (scores within 1e-5 relative, ids equal
+   wherever the float64 scores differ by more than the float32 rounding,
+   equal rows lowest first), bitwise the same with TF32 turned on, fast and
+   approx recall@500 against it, PQ-32x8 held to its reconstruction's
+   float64 inner products, queries/s and ms per 2,048-query batch of each,
+   PQ's bytes and its k-means and encode seconds, rerank at 500
+   candidates, and the device time of the tie-ordered top-k against a
+   float32 ``torch.topk``. This path has no kernel of csrc/: every wrapper's
+   count stays 0, and the run checks that.
+9. After every timed phase, under torch.profiler: a new chunked service
    serves the 20 requests; the kernel wrappers' counts (the launches a
    capture records count once, a replay calls no wrapper) and the K3
    kernels that ran on the card, graph replays included, each against the
    count the batches' chunks imply; then the kernels of one decode step.
-9. Prints the kernel summary as one JSON line, the nvidia-smi line again,
-   and last ``{"ok": true, "device": {...}}``.
+10. Prints the kernel summary as one JSON line, the nvidia-smi line again,
+    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0. Without a CUDA device it exits
 with code 2 before printing any result.
@@ -1376,6 +1400,24 @@ def device_kernels(prof, name: str) -> int:
                if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
+# filler kernels that end a profiler window whose kernels are counted
+DRAIN_KERNELS = 32768
+DRAIN_KERNEL = "spin_kernel"        # torch.cuda._sleep's kernel
+
+
+def drain_trace() -> None:
+    """End a profiler window with DRAIN_KERNELS filler kernels and a pause
+    after the work it counts. A window can lose its last activity records at
+    its close (CUPTI hands over only buffers whose records are complete): one
+    full run of this script counted 3516 of the 3552 K3 kernels below, the
+    wrapper counts and the next run exact. The filler takes the tail, and
+    how many of it the trace holds is printed beside the count."""
+    for _ in range(DRAIN_KERNELS):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+    time.sleep(0.5)
+
+
 def run_profiled(dev):
     """The chunked service (decode_chunk_size=16, int8 K/V through K3) built
     anew, serving the 20 requests under torch.profiler: the kernel wrappers'
@@ -1396,8 +1438,10 @@ def run_profiled(dev):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         chunks = served_run(service, requests)[2]
         torch.cuda.synchronize()
+        drain_trace()
     launches = read_counts()
     k3_runs = device_kernels(prof, K3_KERNEL)
+    drained = device_kernels(prof, DRAIN_KERNEL)
     st = next(iter(engine._batches.values()))
     captured = sum(n for _, n in st.chunks)
     check_counts("the chunked service's first 20 requests (profiled)", launches,
@@ -1409,7 +1453,8 @@ def run_profiled(dev):
         f"replays included): {k3_runs}; expected {layers} layers x ({' + '.join(map(str, run_steps))}"
         f" steps of its {len(chunks)} batches + 1 warm-up step) = {want_runs}; the wrapper "
         f"counted {launches['fused_decode_cross_attention']} (step 0, the warm-up step and "
-        f"the {captured} captured steps)")
+        f"the {captured} captured steps); the trace's tail: {drained} of the {DRAIN_KERNELS} "
+        f"filler kernels after the run")
     if k3_runs != want_runs:
         raise AssertionError(f"K3 ran {k3_runs} times on the card, expected {want_runs}")
     with torch.inference_mode(), torch.profiler.profile(
@@ -1997,6 +2042,484 @@ def run_reader_pipeline(dev):
     return launches
 
 
+# the retriever pipeline (run_retriever_pipeline)
+RETRIEVER_EPOCHS = 2
+CORPUS_SENTENCES = 16_384
+RETRIEVE_QUESTIONS = 96
+LAKO_FACTS, LAKO_DIM = 300_600, 256          # SURVEY.md: the KG corpus, 256-d embeddings
+OKVQA_QUESTIONS, LAKO_K = 5046, 500          # the OK-VQA split VERDICT.md cites; n_docs
+SEARCH_BATCH = 2048                          # DenseIndex.search's query batch
+TIE_GROUP = 600                              # copies of one row in the scale index
+TIE_PAIRS = 2000                             # rows copied once
+SCORE_RTOL = 1e-5                            # exact and PQ scores against float64
+# fast / approx against exact at k=500: bf16 rounding swaps a few rows at the
+# boundary (recall ~0.99 expected); below this the search is broken, not rounded
+RECALL_MIN = 0.95
+SUBJECTS = ANIMALS + ["boy", "girl", "farmer", "car", "train", "boat", "clock", "chair",
+                      "tree", "bird"]
+RELATIONS = ["is near", "eats", "is bigger than", "lives in", "sounds like", "has",
+             "is used for", "is part of"]
+ADJECTIVES = ["red", "old", "small", "large", "wooden", "quiet", "wild", "green", "shiny",
+              "wet", "cold", "tall"]
+OBJECTS = ["barn", "river", "field", "house", "road", "forest", "kitchen", "garden", "city",
+           "hill", "lake", "table", "fence", "bridge", "park", "school", "market", "tower",
+           "beach", "cave"]
+RETRIEVE_KEYS = {"retrieve": ["n_docs", "retrieved"], "rerank": ["reranked"]}
+TRAIN_KEYS = ["best_inversions", "history", "steps"]
+HISTORY_KEYS = ["epoch", "inversions", "loss", "seconds"]
+EXAMPLE_KEYS = ["answer", "caption", "fact", "img_id", "question", "target"]
+FACT_KEYS = ["id", "score", "sentence"]
+PQ_FILES = ["codebooks.npy", "codes.npy", "ids.npy", "meta.json", "source.json"]
+
+
+def synthetic_corpus(n: int, seed: int):
+    """``n`` seeded KG-style sentences ``[{sentence, id}]``: the fixture's
+    eight facts (cat says meow.) and random ``subject relation adjective
+    object.`` sentences, some of them drawn more than once (exact ties)."""
+    rng = np.random.default_rng(seed)
+    facts = [f"{a} says {s}." for a, s in zip(ANIMALS[:8], SOUNDS[:8])]
+    picks = [rng.integers(len(w), size=n) for w in (SUBJECTS, RELATIONS, ADJECTIVES, OBJECTS)]
+    facts += [f"the {SUBJECTS[a]} {RELATIONS[b]} the {ADJECTIVES[c]} {OBJECTS[d]}."
+              for a, b, c, d in zip(*picks)][:n - len(facts)]
+    return [{"sentence": s, "id": i} for i, s in enumerate(facts)]
+
+
+def near_tie_check(what, got_ids, got_s, want_ids, want_s, tol):
+    """Rank by rank, the scores within ``tol`` (per row) and the ids equal
+    wherever the two lists' scores at that rank differ by more than
+    ``tol``: two sums of one dot product in another order may swap rows
+    whose scores lie within their rounding. Returns the ranks swapped."""
+    tol = np.broadcast_to(np.asarray(tol, np.float64).reshape(-1, 1), got_s.shape)
+    gap = np.abs(got_s.astype(np.float64) - want_s.astype(np.float64))
+    if (gap > tol).any():
+        r, j = np.argwhere(gap > tol)[0]
+        raise AssertionError(f"{what}: score {got_s[r, j]} at row {r} rank {j}, expected "
+                             f"{want_s[r, j]} within {tol[r, j]:.3e}")
+    return int((got_ids != want_ids).sum())
+
+
+def timed_search(index, queries, k, repeat=2):
+    """(ids, scores, seconds of each full search, seconds of one
+    SEARCH_BATCH-query search): host clock, the results on the host."""
+    index.search(queries[:SEARCH_BATCH], k)                     # warm-up
+    full, batch = [], []
+    for _ in range(repeat):
+        t0 = time.perf_counter()
+        ids, scores = index.search(queries, k)
+        full.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        index.search(queries[:SEARCH_BATCH], k)
+        batch.append(time.perf_counter() - t0)
+    return ids, scores, full, batch
+
+
+def float64_topk(dev, emb64, queries, k):
+    """The float64 oracle on the card: (ids, scores) of the k+1 largest
+    inner products per query, and a function giving the float64 score of
+    any (query, row) pairs."""
+    q64 = torch.as_tensor(queries, dtype=torch.float64, device=dev)
+    ids, scores = [], []
+    for s in range(0, len(q64), SEARCH_BATCH):
+        top = torch.topk(q64[s:s + SEARCH_BATCH] @ emb64.T, k + 1, dim=1)
+        ids.append(top.indices.cpu().numpy())
+        scores.append(top.values.cpu().numpy())
+
+    def exact64(rows):
+        out = []
+        for s in range(0, len(q64), SEARCH_BATCH):
+            r = torch.as_tensor(rows[s:s + SEARCH_BATCH], device=dev)
+            out.append(torch.einsum("qkd,qd->qk", emb64[r], q64[s:s + SEARCH_BATCH]).cpu())
+        return torch.cat(out).numpy()
+
+    return np.concatenate(ids), np.concatenate(scores), exact64
+
+
+def check_against_oracle(what, ids, scores, oracle_ids, oracle_s, exact64):
+    """A search's results against the float64 oracle: each score within
+    SCORE_RTOL of the float64 score of its row, the ranks in float64 order,
+    and the ids equal to the oracle's wherever the float64 scores at that
+    rank differ by more than the float32 rounding (twice the largest float32
+    error the row shows). Returns (ranks swapped within the rounding, worst
+    relative error)."""
+    k = ids.shape[1]
+    s64 = exact64(ids)
+    rel = np.abs(scores - s64) / np.abs(s64)
+    if rel.max() > SCORE_RTOL:
+        raise AssertionError(f"{what}: relative error {rel.max():.3e} > {SCORE_RTOL:g}")
+    rounding = 2 * np.abs(scores - s64).max(axis=1)
+    swapped = near_tie_check(what, ids, s64, oracle_ids[:, :k], oracle_s[:, :k], rounding)
+    return swapped, float(rel.max())
+
+
+def check_ties(what, ids, group, pairs, aligned):
+    """Equal rows lowest first: the queries aligned with the copied row get
+    the group's lowest rows in order; wherever a copy of a pair appears, the
+    lower row appears too and before it. Returns the pairs seen together."""
+    for r in aligned:
+        if not np.array_equal(ids[r], group[:ids.shape[1]]):
+            raise AssertionError(f"{what}: query {r} did not get the lowest {ids.shape[1]} "
+                                 f"rows of the tied group in order")
+    partner = np.full(LAKO_FACTS, -1)
+    partner[pairs[:, 1]] = pairs[:, 0]
+    lower = partner[ids]
+    seen = np.argwhere(lower >= 0)
+    for r, j in seen:
+        if not (ids[r, :j] == lower[r, j]).any():
+            raise AssertionError(f"{what}: row {ids[r, j]} ranks without, or before, its "
+                                 f"equal row {lower[r, j]}")
+    return len(seen)
+
+
+def check_retrieved(what, rows, examples, n_facts):
+    """A retrieve output file against the JAX stage's schema."""
+    if len(rows) != len(examples) or any(
+            sorted(r) != EXAMPLE_KEYS or len(r["fact"]) != n_facts
+            or any(sorted(f) != FACT_KEYS or not math.isfinite(f["score"]) for f in r["fact"])
+            or [f["score"] for f in r["fact"]] != sorted((f["score"] for f in r["fact"]),
+                                                        reverse=True)
+            for r in rows):
+        raise AssertionError(f"{what}: the output is not the JAX stage's schema")
+
+
+def run_retriever_pipeline(dev):
+    """LaKo's second stage at bert-base width through the CLI
+    (lako_tpu_torch.pipeline.cli.main in this process), in a temporary
+    directory: train-retriever (RetrieverTrainConfig's defaults, 2 epochs,
+    examples/s over the steps after the first, peak memory, checkpoints);
+    embed-facts over a seeded corpus of CORPUS_SENTENCES sentences in f32
+    (sentences/s); retrieve with exact, fast and pq and --small-range,
+    exact held to a DenseIndex built on the CPU, then eval-facts; and the
+    index at LaKo's scale (LAKO_FACTS x LAKO_DIM with tied rows, OKVQA_QUESTIONS
+    queries at k=LAKO_K): exact held to a float64 oracle on the card and to
+    its own ties, TF32 on for one exact search, fast/approx recall, PQ-32x8
+    held to its reconstruction, queries/s of each, rerank at LAKO_K
+    candidates, and the tie-ordered top-k's cost against a float32 top-k.
+    No kernel of lako_tpu_torch/csrc is on this path: the launch counts stay
+    0. Returns them."""
+    from lako_tpu_torch.core.config import RetrieverTrainConfig
+    from lako_tpu_torch.pipeline import stages
+    from lako_tpu_torch.retrieval import pq as pq_mod
+    from lako_tpu_torch.retrieval.index import DenseIndex, RunningTopK, tie_keys
+    from lako_tpu_torch.train import retriever as retriever_mod
+
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "lako_fixtures", Path(__file__).resolve().parent / "tests" / "fixtures.py")
+    fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixtures)
+    cfg = RetrieverTrainConfig(epochs=RETRIEVER_EPOCHS, seed=SEED)
+    n_ctx, B = cfg.n_context, cfg.per_device_batch_size
+    train = fixtures.make_examples(TRAIN_EXAMPLES, n_facts=n_ctx, seed=SEED)
+    evals = fixtures.make_examples(EVAL_EXAMPLES, n_facts=n_ctx, seed=SEED + 100)
+    questions = fixtures.make_examples(RETRIEVE_QUESTIONS, n_facts=n_ctx, seed=SEED + 200)
+    corpus = synthetic_corpus(CORPUS_SENTENCES, SEED)
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        for name, data in (("train", train), ("eval", evals), ("questions", questions),
+                           ("corpus", corpus)):
+            (tmp / f"{name}.json").write_text(json.dumps(data))
+        out = cli(["build-tokenizer", "--from-json", str(tmp / "train.json"),
+                   str(tmp / "corpus.json"), "--out", str(tmp / "btok.json"), "--style", "bert"])
+        cfg = cfg.replace(checkpoint_dir=str(tmp / "ckpt"), name="retriever")
+        (tmp / "cfg.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+        bert = cfg.retriever.bert
+        common = ["--config", str(tmp / "cfg.json"), "--tokenizer", str(tmp / "btok.json")]
+        log(f"retriever pipeline: build-tokenizer {out}; BERT ({bert.num_hidden_layers} "
+            f"layers, hidden {bert.hidden_size}, {bert.num_attention_heads} heads, FFN "
+            f"{bert.intermediate_size}, vocab {bert.vocab_size}, {bert.max_position_embeddings} "
+            f"positions), indexing_dimension {cfg.retriever.indexing_dimension}, L="
+            f"{cfg.retriever.question_maxlength}/{cfg.retriever.passage_maxlength}, random "
+            f"weights from init_retriever (seed {SEED}); B={B}, n_context {n_ctx}, {cfg.dtype} "
+            f"compute, f32 masters, {cfg.optim.optim} lr {cfg.optim.lr}, dropout "
+            f"{bert.hidden_dropout_prob}, {len(train)} train / {len(evals)} eval examples, "
+            f"{cfg.epochs} epochs")
+
+        # 1. train-retriever, each step synchronized and timed
+        step_s = []
+        make_step = retriever_mod.make_retriever_train_step
+
+        def timed_step_maker(model):
+            step = make_step(model)
+
+            def timed(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = step(*args, **kw)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                return result
+
+            return timed
+
+        retriever_mod.make_retriever_train_step = timed_step_maker
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            trained = cli(["train-retriever", *common, "--train-data", str(tmp / "train.json"),
+                           "--eval-data", str(tmp / "eval.json")])
+        finally:
+            retriever_mod.make_retriever_train_step = make_step
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        losses = [h["loss"] for h in trained["history"]]
+        ckpt = tmp / "ckpt" / "retriever" / "checkpoint"
+        names = sorted(p.name for p in ckpt.iterdir())
+        rate = B * (len(step_s) - 1) / sum(step_s[1:])
+        log(f"  train-retriever: {trained['steps']} steps in {seconds:.1f} s; "
+            f"{rate:.2f} examples/s over steps 2-{len(step_s)} (host clock, each step "
+            f"synchronized; step 1 {step_s[0] * 1e3:.1f} ms, then {min(step_s[1:]) * 1e3:.1f}-"
+            f"{max(step_s[1:]) * 1e3:.1f} ms); peak memory {peak:.2f} GB; losses "
+            f"{[round(x, 6) for x in losses]}; inversions "
+            f"{[h['inversions'] for h in trained['history']]}; checkpoints {names}, best_dev "
+            f"{dir_bytes(ckpt / 'best_dev') / 1e9:.3f} GB (params and AdamW state)")
+        if (sorted(trained) != TRAIN_KEYS
+                or any(sorted(h) != HISTORY_KEYS for h in trained["history"])
+                or trained["steps"] != RETRIEVER_EPOCHS * (len(train) // B)
+                or not all(math.isfinite(x) for x in losses)
+                or not {"best_dev", "last", "latest"} <= set(names)):
+            raise AssertionError("train-retriever: a loss is not finite, a checkpoint is "
+                                 "missing, or the output is not the JAX stage's")
+        model_path = ["--model-path", str(ckpt / "best_dev")]
+
+        # 2. embed-facts in f32, the embedding timed alone
+        kept, embed_corpus = {}, stages.embed_corpus
+
+        def timed_embed(*args, **kw):
+            t0 = time.perf_counter()
+            kept["result"] = embed_corpus(*args, **kw)
+            kept["seconds"] = time.perf_counter() - t0
+            return kept["result"]
+
+        stages.embed_corpus = timed_embed
+        t0 = time.perf_counter()
+        try:
+            embedded = cli(["embed-facts", *common, *model_path, "--corpus",
+                            str(tmp / "corpus.json"), "--out", str(tmp / "index")])
+        finally:
+            stages.embed_corpus = embed_corpus
+        log(f"  embed-facts: {embedded}; {len(corpus)} sentences at L="
+            f"{cfg.retriever.passage_maxlength}, batch 512, f32 (TF32 off): "
+            f"{len(corpus) / kept['seconds']:.1f} sentences/s over the embedding "
+            f"({kept['seconds']:.2f} s), the subcommand {time.perf_counter() - t0:.2f} s")
+        if (sorted(embedded) != ["dim", "index_path", "n_facts"]
+                or embedded["n_facts"] != len(corpus)
+                or sorted(p.name for p in (tmp / "index").iterdir())
+                != ["embeddings.npy", "ids.npy", "meta.json"]):
+            raise AssertionError("embed-facts: the output is not the JAX stage's")
+
+        # 3. retrieve: exact (held to a CPU index), fast, pq, --small-range; eval-facts
+        q_kept, embed_questions = [], stages.embed_questions
+
+        def keep_questions(*args, **kw):
+            q_kept.append(embed_questions(*args, **kw))
+            return q_kept[-1]
+
+        retrieve = ["retrieve", *common, *model_path, "--index", str(tmp / "index"),
+                    "--corpus", str(tmp / "corpus.json"), "--data",
+                    str(tmp / "questions.json")]
+        rows = {}
+        stages.embed_questions = keep_questions
+        try:
+            for method in ("exact", "fast", "pq", "small-range"):
+                extra = (["--small-range"] if method == "small-range"
+                         else ["--index-method", method, "--n-docs", str(LAKO_K)])
+                t0 = time.perf_counter()
+                result = cli([*retrieve, "--out", str(tmp / f"{method}.json"), *extra])
+                rows[method] = json.loads((tmp / f"{method}.json").read_text())
+                hits = cli(["eval-facts", "--data", str(tmp / f"{method}.json")])
+                log(f"  retrieve {method}: {result} in {time.perf_counter() - t0:.2f} s; "
+                    f"eval-facts include {hits['include']}, stem {hits['stem']}")
+                kind = "rerank" if method == "small-range" else "retrieve"
+                check_retrieved(f"retrieve {method}", rows[method], questions,
+                                n_ctx if method == "small-range" else LAKO_K)
+                if (sorted(result) != RETRIEVE_KEYS[kind] or sorted(hits) != ["include", "stem"]
+                        or not all(0.0 <= v <= 1.0 for part in hits.values()
+                                   for v in part.values())):
+                    raise AssertionError(f"retrieve {method}: the output is not the JAX "
+                                         "stage's")
+        finally:
+            stages.embed_questions = embed_questions
+        if sorted(p.name for p in (tmp / "index" / "pq").iterdir()) != PQ_FILES:
+            raise AssertionError("retrieve pq: the cached codes are not the JAX layout")
+        cpu_index = DenseIndex.load(str(tmp / "index"), device="cpu")
+        want_ids, want_s = cpu_index.search(q_kept[0], LAKO_K)
+        got_ids = np.array([[f["id"] for f in r["fact"]] for r in rows["exact"]])
+        got_s = np.array([[f["score"] for f in r["fact"]] for r in rows["exact"]], np.float32)
+        same = int((got_ids == want_ids).sum())
+        log(f"  retrieve exact against a DenseIndex built on the CPU from embeddings.npy and "
+            f"the same question embeddings: ids equal at {same} of {got_ids.size} ranks; "
+            f"scores within {np.abs(got_s - want_s).max():.3e}")
+        if same != got_ids.size:
+            raise AssertionError("retrieve exact's ids differ from the CPU index's")
+        del cpu_index
+    launches = read_counts()
+    check_counts("the retriever pipeline (no kernel of csrc/ on its path)", launches, {})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    run_index_at_scale(dev, DenseIndex, RunningTopK, tie_keys, pq_mod)
+    log(f"retriever pipeline phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return launches
+
+
+def run_index_at_scale(dev, DenseIndex, RunningTopK, tie_keys, pq_mod):
+    """The index at LaKo's scale: LAKO_FACTS x LAKO_DIM seeded f32 rows,
+    one row copied TIE_GROUP - 1 times and TIE_PAIRS rows once, and
+    OKVQA_QUESTIONS queries (four aligned with the copied row) at k=LAKO_K."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    emb_dev = torch.randn(LAKO_FACTS, LAKO_DIM, generator=gen, device=dev)
+    rng = np.random.default_rng(SEED)
+    group = np.sort(np.concatenate([[0], rng.choice(np.arange(1, LAKO_FACTS),
+                                                    size=TIE_GROUP - 1, replace=False)]))
+    rest = np.setdiff1d(np.arange(LAKO_FACTS), group)
+    pairs = np.sort(rng.choice(rest, size=(TIE_PAIRS, 2), replace=False), axis=1)
+    emb_dev[torch.as_tensor(group[1:], device=dev)] = emb_dev[0].clone()
+    emb_dev[torch.as_tensor(pairs[:, 1], device=dev)] = emb_dev[torch.as_tensor(pairs[:, 0],
+                                                                                device=dev)]
+    q_dev = torch.randn(OKVQA_QUESTIONS, LAKO_DIM, generator=gen, device=dev)
+    aligned = np.arange(4)
+    q_dev[:4] = emb_dev[0]
+    q_dev[4:8] = emb_dev[torch.as_tensor(pairs[:4, 0], device=dev)]
+    emb, queries = emb_dev.cpu().numpy(), q_dev.cpu().numpy()
+    emb64 = emb_dev.double()
+    del emb_dev, q_dev
+    oracle_ids, oracle_s, exact64 = float64_topk(dev, emb64, queries, LAKO_K)
+    n_batches = -(-OKVQA_QUESTIONS // SEARCH_BATCH)
+    log(f"index at LaKo scale: {LAKO_FACTS} x {LAKO_DIM} f32 rows (seeded, row 0 copied "
+        f"{TIE_GROUP - 1} times, {TIE_PAIRS} rows copied once), {OKVQA_QUESTIONS} queries "
+        f"({len(aligned)} equal to row 0) at k={LAKO_K}, {n_batches} batches of "
+        f"{SEARCH_BATCH}; float64 oracle on the card")
+
+    results, index = {}, None
+    for method in ("exact", "fast", "approx"):
+        index = DenseIndex(emb, method=method, device=dev)
+        ids, scores, full, batch = timed_search(index, queries, LAKO_K)
+        results[method] = ids
+        line = (f"  {method}: {[round(OKVQA_QUESTIONS / t, 1) for t in full]} queries/s over "
+                f"{OKVQA_QUESTIONS}, {[round(t * 1e3, 2) for t in batch]} ms per {SEARCH_BATCH}"
+                f"-query batch (host clock, results on the host)")
+        if method == "exact":
+            swapped, rel = check_against_oracle("exact", ids, scores, oracle_ids, oracle_s,
+                                                exact64)
+            seen = check_ties("exact", ids, group, pairs, aligned)
+            line += (f"; against float64: relative error {rel:.3e} (bound {SCORE_RTOL:g}), "
+                     f"ids equal at {ids.size - swapped} of {ids.size} ranks, {swapped} swapped "
+                     f"within the float32 rounding; ties: the {len(aligned)} aligned queries "
+                     f"got the group's lowest {LAKO_K} rows in order, {seen} copied pairs "
+                     f"ranked lower row first")
+            exact_s = scores
+        else:
+            recall = np.mean([len(np.intersect1d(a, b)) / LAKO_K
+                              for a, b in zip(ids, results["exact"])])
+            line += f"; recall@{LAKO_K} against exact {recall:.5f} (bound {RECALL_MIN})"
+            if recall < RECALL_MIN:
+                raise AssertionError(f"{method}: recall {recall:.5f} < {RECALL_MIN}")
+        log(line)
+    exact_index = DenseIndex(emb, method="exact", device=dev)
+
+    # TF32 on, as a caller may set it: exact stays float32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_ids, tf32_s = exact_index.search(queries, LAKO_K)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    same = np.array_equal(tf32_ids, results["exact"]) and np.array_equal(tf32_s, exact_s)
+    log(f"  exact with torch.backends.cuda.matmul.allow_tf32 = True: ids and scores "
+        f"{'bitwise equal' if same else 'DIFFER'} to the search with it off")
+    if not same:
+        raise AssertionError("exact search changed with TF32 on")
+
+    # the tie-ordered top-k against a float32 top-k, one batch, device time
+    q = torch.as_tensor(queries[:SEARCH_BATCH], device=dev)
+    chunks = [exact_index._emb[s:s + exact_index.chunk_size]
+              for s in range(0, LAKO_FACTS, exact_index.chunk_size)]
+    score_chunks = [q @ c.T for c in chunks]
+
+    def shipped():
+        top = RunningTopK(LAKO_K)
+        for i, sc in enumerate(score_chunks):
+            top.add(sc, i * exact_index.chunk_size)
+        return top.result()
+
+    def keyed():
+        best = None
+        for i, sc in enumerate(score_chunks):
+            keys = tie_keys(sc, i * exact_index.chunk_size)
+            cat = keys if best is None else torch.cat([best, keys], dim=1)
+            best = torch.topk(cat, LAKO_K, dim=1).values
+        return best
+
+    def plain():
+        best = None
+        for sc in score_chunks:
+            cat = sc if best is None else torch.cat([best, sc], dim=1)
+            best = torch.topk(cat, LAKO_K, dim=1).values
+        return best
+
+    def matmuls():
+        return [q @ c.T for c in chunks]
+
+    shipped_ms, keyed_ms, plain_ms, mm_ms = (event_ms(fn)
+                                             for fn in (shipped, keyed, plain, matmuls))
+    log(f"  one {SEARCH_BATCH}-query batch, device time (CUDA events, 5 calls): f32 matmuls "
+        f"{mm_ms:.3f} ms; the tie-ordered top-k over {len(chunks)} chunks (RunningTopK: a "
+        f"float32 top-k, int64 keys only for rows tied at the boundary) {shipped_ms:.3f} ms; "
+        f"int64 keys of every score {keyed_ms:.3f} ms; torch.topk on the float32 scores "
+        f"(ties unordered) {plain_ms:.3f} ms")
+    del score_chunks
+
+    # rerank at LAKO_K candidates: exact's ids, shuffled per row
+    cand = results["exact"][:SEARCH_BATCH].copy()
+    for row in cand:
+        rng.shuffle(row)
+    exact_index.rerank(cand[:64], queries[:64])
+    t0 = time.perf_counter()
+    rr_ids, rr_s = exact_index.rerank(cand, queries[:SEARCH_BATCH])
+    rr_secs = time.perf_counter() - t0
+    swapped = near_tie_check("rerank", rr_ids, rr_s, results["exact"][:SEARCH_BATCH],
+                             exact_s[:SEARCH_BATCH], 2e-5 * np.abs(exact_s[:SEARCH_BATCH]).max(1))
+    log(f"  rerank of {SEARCH_BATCH} queries x {LAKO_K} shuffled candidates: "
+        f"{rr_secs * 1e3:.2f} ms (host clock), {SEARCH_BATCH / rr_secs:.1f} queries/s; the "
+        f"exact order back at {rr_ids.size - swapped} of {rr_ids.size} ranks, {swapped} "
+        f"swapped within 2e-5 (relative)")
+    del exact_index, index
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # PQ-32x8: train and encode on the host, codes on the card
+    encode_s, encode = [], pq_mod.PQIndex._encode
+
+    def timed_encode(*args, **kw):
+        t0 = time.perf_counter()
+        codes = encode(*args, **kw)
+        encode_s.append(time.perf_counter() - t0)
+        return codes
+
+    pq_mod.PQIndex._encode = staticmethod(timed_encode)
+    t0 = time.perf_counter()
+    try:
+        pq = pq_mod.PQIndex.train(emb, n_subquantizers=32, n_bits=8, device=dev)
+    finally:
+        pq_mod.PQIndex._encode = staticmethod(encode)
+    train_s = time.perf_counter() - t0 - encode_s[0]
+    ids, scores, full, batch = timed_search(pq, queries, LAKO_K)
+    recon = pq.decompress(0, pq.n).double()
+    pq_ids, pq_s, recon64 = float64_topk(dev, recon, queries, LAKO_K)
+    swapped, rel = check_against_oracle("pq", ids, scores, pq_ids, pq_s, recon64)
+    recall = np.mean([len(np.intersect1d(a, b)) / LAKO_K for a, b in zip(ids, results["exact"])])
+    log(f"  pq-32x8: {pq.nbytes() / 1e6:.3f} MB of codes and codebooks (the f32 corpus "
+        f"{emb.nbytes / 1e6:.1f} MB); k-means {train_s:.2f} s, encode {encode_s[0]:.2f} s "
+        f"(numpy, host); {[round(OKVQA_QUESTIONS / t, 1) for t in full]} queries/s, "
+        f"{[round(t * 1e3, 2) for t in batch]} ms per {SEARCH_BATCH}-query batch; scores "
+        f"against the reconstruction's float64 inner products: relative error {rel:.3e}, ids "
+        f"equal at {ids.size - swapped} of {ids.size} ranks; recall@{LAKO_K} against exact "
+        f"{recall:.5f}")
+    del pq, recon, emb64
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # the main-path run each kernel's launch count comes from: (phase, route)
 LAUNCHES_FROM = {"streamed_attention": ("training", "streamed"),
                  "streamed_attention_bwd_dkdv": ("training", "streamed"),
@@ -2057,6 +2580,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     runs["pipeline"] = run_reader_pipeline(dev)  # K1 + K2a/K2b/K2c + K5 through the CLI
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["retriever"] = run_retriever_pipeline(dev)  # no kernel: the counts stay 0
     gc.collect()
     torch.cuda.empty_cache()
     runs["profiled"] = run_profiled(dev)         # K3 in captured chunks, from a trace

@@ -1,5 +1,5 @@
 """Typed configuration: the part of lako_tpu/core/config.py that serving,
-reader training and the attention signal need.
+reader training, the attention signal and the retriever need.
 
 A copy, not an import: ``lako_tpu.core`` pulls in jax when imported. Field
 names and defaults equal the JAX package's (pinned by
@@ -114,6 +114,50 @@ def t5_config_for_size(size: str, **overrides) -> T5Config:
 
 
 @dataclass(frozen=True)
+class BertConfig(_ConfigBase):
+    """BERT architecture hyperparameters (bert-base-uncased defaults)."""
+
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    hidden_act: str = "gelu"
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    pad_token_id: int = 0
+
+
+def bert_config_tiny() -> BertConfig:
+    return BertConfig(
+        vocab_size=1000,
+        hidden_size=64,
+        num_hidden_layers=2,
+        num_attention_heads=4,
+        intermediate_size=128,
+        max_position_embeddings=128,
+    )
+
+
+@dataclass(frozen=True)
+class RetrieverConfig(_ConfigBase):
+    """Bi-encoder retriever head config."""
+
+    bert: BertConfig = field(default_factory=BertConfig)
+    indexing_dimension: int = 256
+    apply_question_mask: bool = True
+    apply_passage_mask: bool = True
+    extract_cls: bool = False
+    passage_maxlength: int = 130
+    question_maxlength: int = 130
+    projection: bool = True
+    asymmetric: bool = False
+
+
+@dataclass(frozen=True)
 class ReaderDataConfig(_ConfigBase):
     """Reader example construction + batching.
 
@@ -211,6 +255,25 @@ class ReaderTrainConfig(_ConfigBase):
     mesh: MeshConfig = field(default_factory=MeshConfig)
     checkpoint_dir: str = "./checkpoint"
     name: str = "experiment"
+
+
+@dataclass(frozen=True)
+class RetrieverTrainConfig(_ConfigBase):
+    """Retriever distillation loop (train/retriever.py). The port trains on
+    one device (ROADMAP item 12)."""
+
+    per_device_batch_size: int = 8
+    eval_batch_size: int = 8
+    epochs: int = 10
+    early_stop: int = 3
+    seed: int = 0
+    n_context: int = 10
+    dtype: str = "bfloat16"
+    retriever: RetrieverConfig = field(default_factory=RetrieverConfig)
+    optim: OptimConfig = field(default_factory=lambda: OptimConfig(lr=1e-4))
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    checkpoint_dir: str = "./checkpoint"
+    name: str = "retriever"
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,8 @@
-"""Fixed-shape reader batch collation.
+"""Fixed-shape batch collation: a copy of lako_tpu/data/collator.py (its
+package imports jax), pinned to the original by tests/test_torch_serve.py.
 
-A copy of the reader half of lako_tpu/data/collator.py (its package imports
-jax). Produces numpy ``(B, N, L)`` passage arrays; the model moves them to
-its device. The fact-stream passage is built by concatenating per-piece token
+Produces numpy arrays (reader ``(B, N, L)`` passages, retriever question and
+fact batches, flat corpus batches); the model moves them to its device. The fact-stream passage is built by concatenating per-piece token
 ids, so per-fact token spans are exact by construction.
 """
 
@@ -27,6 +27,18 @@ class ReaderBatch:
     n_facts: np.ndarray        # (B,) int32
     valid: np.ndarray          # (B,) bool — False for padding rows
     question_spans: np.ndarray = None  # (B, 2) int32: content span in passage 0
+
+
+@dataclass
+class RetrieverBatch:
+    index: np.ndarray          # (B,) int32
+    question_ids: np.ndarray   # (B, Lq) int32
+    question_mask: np.ndarray  # (B, Lq) bool
+    passage_ids: np.ndarray    # (B, n_ctx, Lp) int32
+    passage_mask: np.ndarray   # (B, n_ctx, Lp) bool
+    gold_scores: np.ndarray    # (B, n_ctx) float32
+    n_facts: np.ndarray        # (B,) int32
+    valid: np.ndarray          # (B,) bool
 
 
 class ReaderCollator:
@@ -110,3 +122,73 @@ class ReaderCollator:
 
         return ReaderBatch(index, passage_ids, passage_mask, labels, fact_spans,
                            n_facts, valid, question_spans)
+
+
+class RetrieverCollator:
+    """question = question + caption; passages = fact sentences."""
+
+    def __init__(self, tokenizer: BaseTokenizer, n_context: int,
+                 question_maxlength: int = 130, passage_maxlength: int = 130):
+        self.tokenizer = tokenizer
+        self.n_context = n_context
+        self.question_maxlength = question_maxlength
+        self.passage_maxlength = passage_maxlength
+
+    def __call__(self, items: Sequence[dict], pad_to: Optional[int] = None) -> RetrieverBatch:
+        tok = self.tokenizer
+        B = len(items)
+        Bp = pad_to or B
+        n_ctx, Lq, Lp = self.n_context, self.question_maxlength, self.passage_maxlength
+
+        question_ids = np.full((Bp, Lq), tok.pad_id, dtype=np.int32)
+        question_mask = np.zeros((Bp, Lq), dtype=bool)
+        passage_ids = np.full((Bp, n_ctx, Lp), tok.pad_id, dtype=np.int32)
+        passage_mask = np.zeros((Bp, n_ctx, Lp), dtype=bool)
+        gold_scores = np.zeros((Bp, n_ctx), dtype=np.float32)
+        n_facts = np.zeros(Bp, dtype=np.int32)
+        index = np.zeros(Bp, dtype=np.int32)
+        valid = np.zeros(Bp, dtype=bool)
+
+        for i, item in enumerate(items):
+            index[i] = item["index"]
+            valid[i] = True
+            q = item["question"] + " " + item["caption"]
+            q_ids = tok.encode(q)[:Lq]
+            question_ids[i, : len(q_ids)] = q_ids
+            question_mask[i, : len(q_ids)] = True
+
+            sents = item["fact_sentences"][:n_ctx]
+            n_facts[i] = len(sents)
+            for j, sent in enumerate(sents):
+                p_ids = tok.encode(sent)[:Lp]
+                passage_ids[i, j, : len(p_ids)] = p_ids
+                passage_mask[i, j, : len(p_ids)] = True
+            if item["score"] is not None:
+                s = np.asarray(item["score"][:n_ctx], dtype=np.float32)
+                gold_scores[i, : len(s)] = s
+
+        return RetrieverBatch(index, question_ids, question_mask, passage_ids,
+                              passage_mask, gold_scores, n_facts, valid)
+
+
+class TextCollator:
+    """Flat KG-sentence batches for corpus embedding: (fact ids, token ids,
+    mask)."""
+
+    def __init__(self, tokenizer: BaseTokenizer, maxlength: int = 100):
+        self.tokenizer = tokenizer
+        self.maxlength = maxlength
+
+    def __call__(self, items: Sequence[dict], pad_to: Optional[int] = None):
+        tok = self.tokenizer
+        B = len(items)
+        Bp = pad_to or B
+        ids = np.full((Bp, self.maxlength), tok.pad_id, dtype=np.int32)
+        mask = np.zeros((Bp, self.maxlength), dtype=bool)
+        fact_ids = np.full(Bp, -1, dtype=np.int64)
+        for i, item in enumerate(items):
+            t_ids = tok.encode(item["sentence"])[: self.maxlength]
+            ids[i, : len(t_ids)] = t_ids
+            mask[i, : len(t_ids)] = True
+            fact_ids[i] = int(item["id"])
+        return fact_ids, ids, mask

@@ -1,11 +1,13 @@
-"""lako on PyTorch: the reader's subcommands of lako_tpu/pipeline/cli.py.
+"""lako on PyTorch: the reader's and the retriever's subcommands of
+lako_tpu/pipeline/cli.py.
 
-Usage: python -m lako_tpu_torch.pipeline.cli <subcommand> ...
+Usage: python -m lako_tpu_torch.pipeline <subcommand> ...
 
-``build-tokenizer`` (word vocabularies), ``train-reader`` and
-``eval-reader`` take the JAX CLI's flags and typed JSON configs, plus
-``--device`` (the CUDA card unless given; ``--device cpu`` runs on the CPU).
-Their JSON artifacts have the JAX package's schemas.
+``build-tokenizer`` (word vocabularies), ``train-reader``, ``eval-reader``,
+``train-retriever``, ``embed-facts``, ``retrieve`` and ``eval-facts`` take
+the JAX CLI's flags and typed JSON configs, plus ``--device`` (the CUDA card
+unless given; ``--device cpu`` runs on the CPU). Their JSON artifacts have
+the JAX package's schemas.
 """
 
 from __future__ import annotations
@@ -14,14 +16,19 @@ import argparse
 import json
 from pathlib import Path
 
-from lako_tpu_torch.core.config import AttentionSignalConfig, ReaderTrainConfig, T5Config
+from lako_tpu_torch.core.config import (
+    AttentionSignalConfig,
+    ReaderTrainConfig,
+    RetrieverTrainConfig,
+    T5Config,
+)
 from lako_tpu_torch.core.logging import init_logger
 
 # the JAX CLI's other subcommands, by the ROADMAP item that ports each
 _NOT_PORTED = """\
-not ported yet (ROADMAP item): train-retriever (7); embed-facts, retrieve (8);
-eval-facts, mine-candidates, prep-answers, truncate-data, prep-questions,
-full-loop (9); serve (11, with 9)"""
+not ported yet (ROADMAP item): mine-candidates, prep-answers, truncate-data,
+prep-questions, full-loop (9); serve (11, with 9); retrieve --sharded-index
+(12)"""
 
 
 def _load_cfg(cls, path):
@@ -30,10 +37,10 @@ def _load_cfg(cls, path):
     return cls.from_dict(json.loads(Path(path).read_text()))
 
 
-def _tokenizer(path: str):
+def _tokenizer(path: str, style: str = "t5"):
     from lako_tpu_torch.text.tokenizer import load_tokenizer
 
-    return load_tokenizer(path)
+    return load_tokenizer(path, style=style)
 
 
 def _t5_cfg(args):
@@ -104,6 +111,46 @@ def cmd_eval_reader(args):
     print(json.dumps(out))
 
 
+def cmd_train_retriever(args):
+    from lako_tpu_torch.pipeline.stages import train_retriever_stage
+
+    cfg = _load_cfg(RetrieverTrainConfig, args.config)
+    tok = _tokenizer(args.tokenizer, style="bert")
+    out = train_retriever_stage(cfg, args.train_data, args.eval_data, tok, device=args.device)
+    print(json.dumps(out))
+
+
+def cmd_embed_facts(args):
+    from lako_tpu_torch.pipeline.stages import embed_facts_stage
+
+    cfg = _load_cfg(RetrieverTrainConfig, args.config).retriever
+    tok = _tokenizer(args.tokenizer, style="bert")
+    out = embed_facts_stage(cfg, args.model_path, args.corpus, args.out, tok,
+                            batch_size=args.batch_size, device=args.device)
+    print(json.dumps(out))
+
+
+def cmd_retrieve(args):
+    from lako_tpu_torch.pipeline.stages import rerank_stage, retrieve_stage
+
+    cfg = _load_cfg(RetrieverTrainConfig, args.config).retriever
+    tok = _tokenizer(args.tokenizer, style="bert")
+    fn = rerank_stage if args.small_range else retrieve_stage
+    kwargs = {} if args.small_range else {"n_docs": args.n_docs,
+                                          "sharded": args.sharded_index,
+                                          "index_method": args.index_method}
+    out = fn(cfg, args.model_path, args.index, args.corpus, args.data, args.out, tok,
+             device=args.device, **kwargs)
+    print(json.dumps(out))
+
+
+def cmd_eval_facts(args):
+    from lako_tpu_torch.pipeline.stages import eval_facts_stage
+
+    out = eval_facts_stage(args.data, hitk=args.hitk)
+    print(json.dumps(out))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="lako", description=__doc__, epilog=_NOT_PORTED,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -146,6 +193,50 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--num-beams", type=int, default=1)
     t.add_argument("--device", help="torch device, e.g. cpu (default: the CUDA card)")
     t.set_defaults(fn=cmd_eval_reader)
+
+    t = sub.add_parser("train-retriever", help="distill retriever from attention")
+    t.add_argument("--config")
+    t.add_argument("--train-data", required=True)
+    t.add_argument("--eval-data", required=True)
+    t.add_argument("--tokenizer", required=True)
+    t.add_argument("--device", help="torch device, e.g. cpu (default: the CUDA card)")
+    t.set_defaults(fn=cmd_train_retriever)
+
+    t = sub.add_parser("embed-facts", help="embed the KG corpus into an index")
+    t.add_argument("--config")
+    t.add_argument("--model-path", required=True)
+    t.add_argument("--corpus", required=True)
+    t.add_argument("--out", required=True)
+    t.add_argument("--tokenizer", required=True)
+    t.add_argument("--batch-size", type=int, default=512)
+    t.add_argument("--device", help="torch device, e.g. cpu (default: the CUDA card)")
+    t.set_defaults(fn=cmd_embed_facts)
+
+    t = sub.add_parser("retrieve", help="dense retrieval (full or small-range)")
+    t.add_argument("--config")
+    t.add_argument("--model-path", required=True)
+    t.add_argument("--index", required=True)
+    t.add_argument("--corpus", required=True)
+    t.add_argument("--data", nargs="+", required=True)
+    t.add_argument("--out", nargs="+", required=True)
+    t.add_argument("--tokenizer", required=True)
+    t.add_argument("--n-docs", type=int, default=500)
+    t.add_argument("--index-method", default="exact", choices=["exact", "fast", "approx", "pq"],
+                   help="exact = float32 scores; fast = bfloat16 inputs with float32 "
+                        "accumulation on the card (float32 on the CPU); approx = fast's "
+                        "scores with the exact top-k (approx_max_k is a TPU operation); "
+                        "pq = the product quantizer, trained and cached in <index>/pq")
+    t.add_argument("--small-range", action="store_true",
+                   help="re-rank each example's existing candidates")
+    t.add_argument("--sharded-index", action="store_true",
+                   help="shard the corpus over devices: not ported yet (ROADMAP item 12)")
+    t.add_argument("--device", help="torch device, e.g. cpu (default: the CUDA card)")
+    t.set_defaults(fn=cmd_retrieve)
+
+    t = sub.add_parser("eval-facts", help="retrieval hit@k")
+    t.add_argument("--data", required=True)
+    t.add_argument("--hitk", nargs="*", type=int)
+    t.set_defaults(fn=cmd_eval_facts)
     return p
 
 

@@ -1,13 +1,17 @@
-"""Reader metrics: copies of ``exact_match_score``, ``includ_match_score``,
-``ems``, ``includ_ems`` and ``stem_ems`` from lako_tpu/text/metrics.py,
-pinned to the originals by tests/test_torch_train.py and
-tests/test_torch_signal.py. Ground truths are ``{answer: soft_score}``, so
-each metric returns the best weighted match.
+"""Reader and retriever metrics: copies of ``exact_match_score``,
+``includ_match_score``, ``ems``, ``includ_ems``, ``stem_ems``,
+``count_inversions`` and ``ranking_stats`` from lako_tpu/text/metrics.py,
+pinned to the originals by tests/test_torch_train.py,
+tests/test_torch_signal.py and tests/test_torch_retrieval.py. Ground truths
+are ``{answer: soft_score}``, so each answer metric returns the best
+weighted match.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping, Sequence
+
+import numpy as np
 
 from lako_tpu_torch.text.normalize import normalize_answer
 from lako_tpu_torch.text.stem import porter_stem, word_tokenize
@@ -40,3 +44,50 @@ def stem_ems(prediction: str, ground_truths: Mapping[str, float],
         if any(porter_stem(t) in stem_ans for t in word_tokenize(normalize_answer(ground_truth))):
             return value
     return 0.0
+
+
+def count_inversions(arr: Sequence[int]) -> int:
+    """Number of pairs out of order, by an O(n log n) merge count."""
+    a = list(arr)
+
+    def _merge_count(lo, hi):
+        if hi - lo <= 1:
+            return 0
+        mid = (lo + hi) // 2
+        inv = _merge_count(lo, mid) + _merge_count(mid, hi)
+        merged = []
+        i, j = lo, mid
+        while i < mid and j < hi:
+            if a[i] <= a[j]:
+                merged.append(a[i])
+                i += 1
+            else:
+                inv += mid - i
+                merged.append(a[j])
+                j += 1
+        merged.extend(a[i:mid])
+        merged.extend(a[j:hi])
+        a[lo:hi] = merged
+        return inv
+
+    return _merge_count(0, len(a))
+
+
+def ranking_stats(
+    scores: np.ndarray,
+    inversions: list,
+    avg_topk: Dict[int, list],
+    idx_topk: Dict[int, list],
+) -> None:
+    """Accumulate inversion / top-k-overlap stats for a batch of predicted
+    scores against gold rank order. ``scores[i]`` are predicted scores for
+    passages already sorted by gold score descending, so ``argsort(-scores)``
+    maps predicted rank → gold rank."""
+    for s in np.asarray(scores):
+        x = np.argsort(-s)
+        inversions.append(count_inversions(x))
+        for k in avg_topk:
+            avg_topk[k].append((x[:k] < k).mean())
+        for k in idx_topk:
+            below_k = x < k
+            idx_topk[k].append(len(x) - int(np.argmax(below_k[::-1])))

@@ -838,3 +838,117 @@ def test_generate_and_score_on_the_card(cuda_device):
             want = aggregate_fact_scores(xl.cpu().numpy(), mask.cpu().numpy(),
                                          spans.cpu().numpy(), cfg)
             np.testing.assert_allclose(scores.cpu().numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def _integer_corpus(n, d, seed=0):
+    """Small integers: every score is an integer that any summation order,
+    bfloat16 inputs and TF32 compute exactly, so equal scores tie exactly
+    on every device; one row is copied 600 times and queried, so the
+    boundary of k=500 falls inside the group."""
+    rng = np.random.default_rng(seed)
+    emb = rng.integers(-4, 5, size=(n, d)).astype(np.float32)
+    group = rng.choice(np.arange(1, n), size=599, replace=False)
+    emb[group] = emb[0]
+    q = rng.integers(-4, 5, size=(37, d)).astype(np.float32)
+    q[0] = emb[0]
+    return emb, q
+
+
+@pytest.mark.parametrize("method", ["exact", "fast", "approx"])
+def test_dense_index_on_the_card_matches_the_cpu(cuda_device, method):
+    """Ids and scores on the card equal the CPU path's, ties included (the
+    lowest 500 rows of the copied group at the boundary), one chunk and
+    several."""
+    from lako_tpu_torch.retrieval.index import DenseIndex
+
+    emb, q = _integer_corpus(20_000, 32)
+    for chunk_size in (131072, 3000):
+        card = DenseIndex(emb, chunk_size=chunk_size, method=method, device=cuda_device)
+        assert card._emb.device.type == "cuda"
+        cpu = DenseIndex(emb, chunk_size=chunk_size, method=method, device="cpu")
+        got, want = card.search(q, 500), cpu.search(q, 500)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        group = np.flatnonzero((emb == emb[0]).all(1))
+        np.testing.assert_array_equal(got[0][0], group[:500])
+    cand = np.stack([np.random.default_rng(i).permutation(20_000)[:500] for i in range(len(q))])
+    got, want = card.rerank(cand, q), cpu.rerank(cand, q)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_exact_search_ignores_tf32(cuda_device):
+    """With TF32 turned on by the caller, "exact" and rerank still compute
+    in float32 (the ids and scores of the run with it off), and the
+    caller's setting is left as it was."""
+    from lako_tpu_torch.retrieval.index import DenseIndex
+
+    rng = np.random.default_rng(1)
+    emb = rng.normal(size=(50_000, 256)).astype(np.float32)
+    q = rng.normal(size=(64, 256)).astype(np.float32)
+    index = DenseIndex(emb, chunk_size=16384, device=cuda_device)
+    want = index.search(q, 100)
+    want_rr = index.rerank(want[0], q)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = index.search(q, 100)
+        got_rr = index.rerank(want[0], q)
+        assert torch.backends.cuda.matmul.allow_tf32
+        a = torch.randn(256, 256, device=cuda_device)
+        tf32 = a @ a
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got_rr[1], want_rr[1])
+    # the caller's TF32 was in force outside the index: its product differs
+    assert not torch.equal(tf32, a @ a)
+
+
+@pytest.mark.parametrize("n_bits", [8, 9])
+def test_pq_index_on_the_card_matches_the_cpu(cuda_device, n_bits):
+    """Codes on the card (uint8, or uint16 as int16 bits), decompressed
+    bitwise, and the search's ids and scores equal the CPU path's."""
+    from lako_tpu_torch.retrieval.pq import PQIndex
+
+    emb, q = _integer_corpus(3000, 16, seed=2)
+    m = 8 if n_bits == 8 else 2
+    cpu = PQIndex.train(emb, n_subquantizers=m, n_bits=n_bits, train_size=3000, iters=3,
+                        device="cpu")
+    card = PQIndex(cpu.codebooks, cpu.codes, chunk_size=700, device=cuda_device)
+    cpu.chunk_size = 700
+    assert torch.equal(card.decompress(0, card.n).cpu(), cpu.decompress(0, cpu.n))
+    got, want = card.search(q, 200), cpu.search(q, 200)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6)
+
+
+def test_bert_forward_on_the_card_matches_the_cpu(cuda_device):
+    """The retriever's forward at f32 on the card within 1e-4 of the CPU's,
+    padded rows included; with bf16 compute, whose scores (~5.5 here) are
+    bf16 numbers, the scores within four bf16 ulps (0.125) of it."""
+    from lako_tpu_torch.core.config import BertConfig, RetrieverConfig
+    from lako_tpu_torch.models.bert import init_retriever
+
+    cfg = RetrieverConfig(bert=BertConfig(num_hidden_layers=2), indexing_dimension=256)
+    cpu = init_retriever(cfg, torch.Generator().manual_seed(0))
+    card = init_retriever(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(3)
+    q_ids = torch.from_numpy(rng.integers(1000, 30000, size=(4, 130)))
+    p_ids = torch.from_numpy(rng.integers(1000, 30000, size=(4, 5, 130)))
+    q_mask = torch.ones_like(q_ids, dtype=torch.bool)
+    q_mask[1, 40:] = False
+    p_mask = torch.ones_like(p_ids, dtype=torch.bool)
+    p_mask[2, 3, 7:] = False
+    gold = torch.softmax(torch.from_numpy(rng.normal(size=(4, 5))).float(), -1)
+    args = (q_ids, q_mask, p_ids, p_mask, gold)
+    with torch.no_grad():
+        want = cpu(*args)
+        got = card(*(a.to(cuda_device) for a in args))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0, atol=1e-4)
+        bf16 = init_retriever(cfg, torch.Generator(device=cuda_device), torch.bfloat16)
+        bf16.load_state_dict(cpu.state_dict())
+        score = bf16(*(a.to(cuda_device) for a in args))[2]
+    np.testing.assert_allclose(score.float().cpu().numpy(), want[2].numpy(), rtol=0, atol=0.125)

@@ -173,7 +173,7 @@ def test_eval_reader_beam_and_its_refusal(runs):
 def test_unported_inputs_raise(runs, tmp_path, monkeypatch):
     """An HF checkpoint directory names ROADMAP item 9, more than one process
     item 12, an HF tokenizer kind item 9; --help names the item of each
-    subcommand left out."""
+    subcommand and option left out, and no longer the retriever's."""
     from lako_tpu_torch.core.config import AttentionSignalConfig, ReaderTrainConfig
 
     d = runs["port"]["dir"]
@@ -194,6 +194,8 @@ def test_unported_inputs_raise(runs, tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="ROADMAP item 9"):
         port_cli(["build-tokenizer", "--from-json", args[1], "--out", str(tmp_path / "t.json"),
                   "--kind", "unigram"])
-    epilog = build_parser().format_help()
-    for text in ("train-retriever (7)", "retrieve (8)", "full-loop (9)", "serve (11, with 9)"):
-        assert text in " ".join(epilog.split()), text
+    epilog = " ".join(build_parser().format_help().split())
+    for text in ("full-loop (9)", "serve (11, with 9)", "retrieve --sharded-index (12)"):
+        assert text in epilog, text
+    for text in ("train-retriever (7)", "embed-facts, retrieve (8)", "eval-facts,"):
+        assert text not in epilog, text

@@ -283,10 +283,11 @@ def test_engine_policy_validation_matches_jax(caplog):
 
 
 @pytest.mark.parametrize("name", ["T5Config", "ReaderDataConfig", "OptimConfig",
-                                  "MeshConfig", "ReaderTrainConfig", "AttentionSignalConfig"])
+                                  "MeshConfig", "ReaderTrainConfig", "AttentionSignalConfig",
+                                  "BertConfig", "RetrieverConfig", "RetrieverTrainConfig"])
 def test_copied_configs_match(name):
     """Same fields, in the same order, with the same defaults (nested
-    default factories included)."""
+    default factories included); a nested JSON dict reads the same."""
     ours, theirs = getattr(port_config, name), getattr(jax_config, name)
 
     def spec(cls):
@@ -296,6 +297,12 @@ def test_copied_configs_match(name):
     assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())
     assert dataclasses.asdict(port_config.t5_config_for_size("large")) == \
         dataclasses.asdict(jax_config.t5_config_for_size("large"))
+    assert dataclasses.asdict(port_config.bert_config_tiny()) == \
+        dataclasses.asdict(jax_config.bert_config_tiny())
+    nested = {"retriever": {"bert": {"hidden_size": 32}, "indexing_dimension": 16},
+              "optim": {"lr": 1e-3}, "epochs": 2}
+    assert dataclasses.asdict(port_config.RetrieverTrainConfig.from_dict(nested)) == \
+        dataclasses.asdict(jax_config.RetrieverTrainConfig.from_dict(nested))
 
 
 @pytest.mark.parametrize("data", [DATA, dict(DATA, stream=1),
@@ -329,7 +336,11 @@ def test_port_imports_no_jax():
             "'lako_tpu_torch.pipeline.stages', 'lako_tpu_torch.pipeline.__main__', "
             "'lako_tpu_torch.signal.aggregate', 'lako_tpu_torch.text.stem', "
             "'lako_tpu_torch.core.checkpoint', 'lako_tpu_torch.core.distributed', "
-            "'lako_tpu_torch.core.preemption', 'lako_tpu_torch.core.profiling'} <= set(names), "
+            "'lako_tpu_torch.core.preemption', 'lako_tpu_torch.core.profiling', "
+            "'lako_tpu_torch.models.bert.model', 'lako_tpu_torch.models.bert.convert', "
+            "'lako_tpu_torch.models.retriever', 'lako_tpu_torch.train.retriever', "
+            "'lako_tpu_torch.retrieval.embed', 'lako_tpu_torch.retrieval.index', "
+            "'lako_tpu_torch.retrieval.pq', 'lako_tpu_torch.retrieval.eval'} <= set(names), "
             "names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'msgpack', 'lako_tpu', 'regex', 'nltk', 'transformers')]; "
