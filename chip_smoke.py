@@ -119,12 +119,32 @@
    candidates, and the device time of the tie-ordered top-k against a
    float32 ``torch.topk``. This path has no kernel of csrc/: every wrapper's
    count stays 0, and the run checks that.
-9. After every timed phase, under torch.profiler: a new chunked service
+9. LaKo served end to end (``run_served_retrieval``): ``LakoService`` at
+   t5-large width on the whole-block route (K4) with int8 K/V through K3 on
+   CUDA graphs retrieves each of the 20 requests' facts with a BERT-base
+   retriever (RetrieverConfig's defaults, random weights) from an exact
+   DenseIndex of 300,600 x 256 f32 rows (16,384 of them the retriever's own
+   embeddings of a seeded corpus, the rest seeded normal rows at those
+   norms): the facts against a float64 top-n_context of the same question
+   embeddings, the answers against those with the retrieved facts passed
+   in (tokens identical), K4's and K3's launches; answers/s with and
+   without retrieval, retrieval ms a batch, peak memory, the card.
+10. LaKo's loop through the CLI (``run_lako_loop``), t5-large's and
+   bert-base's widths at 2 layers each: ``mine-candidates`` over 4,096
+   seeded triples (64 train and 16 eval questions), ``build-tokenizer``,
+   ``full-loop --iterations 2 --fact-ablation`` on the streamed route (K1,
+   K2a/K2b/K2c counted against the steps and evaluations), the history's
+   JSON schema with its diagnostics, the two readers' hashes different;
+   then ``serve`` as a subprocess on the last iteration's reader,
+   retriever, fact index and corpus, and one POST to it (an answer and
+   n_context facts of the corpus).
+11. After every timed phase, under torch.profiler: a new chunked service
    serves the 20 requests; the kernel wrappers' counts (the launches a
    capture records count once, a replay calls no wrapper) and the K3
    kernels that ran on the card, graph replays included, each against the
    count the batches' chunks imply; then the kernels of one decode step.
-10. Prints the kernel summary as one JSON line, the nvidia-smi line again,
+12. Prints the whole script's time, the kernel summary as one JSON line,
+    the nvidia-smi line again,
     and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0. Without a CUDA device it exits
@@ -2520,6 +2540,346 @@ def run_index_at_scale(dev, DenseIndex, RunningTopK, tie_keys, pq_mod):
     torch.cuda.empty_cache()
 
 
+# LaKo served end to end: the retriever at bert-base width over an index at LaKo's scale
+RETRIEVAL_CORPUS = 16_384                    # the retriever's own embeddings in the index
+HISTORY_KEYS_LOOP = ["diagnostics", "eval", "hit_at_k_include", "iteration", "reader_best_em",
+                     "retriever_best_inversions"]                      # full_loop.py
+DIAGNOSTIC_KEYS = {1: ["fact_shuffle_ablation", "hit_conditioned", "reader_ckpt",
+                       "reader_ckpt_sha256", "retriever_inversions_vs_v1_gold"]}
+DIAGNOSTIC_KEYS[2] = sorted(DIAGNOSTIC_KEYS[1] + ["answers_vs_prev", "train_fact_diff_vs_prev"])
+LOOP_TRIPLES, LOOP_TRAIN, LOOP_EVAL = 4096, 64, 16
+LOOP_LAYERS, LOOP_BERT_LAYERS, LOOP_EPOCHS = 2, 2, 1
+SERVE_START_S = 300                          # the serve subprocess's start-up, at most
+
+
+def power_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def run_served_retrieval(dev):
+    """LaKo served end to end on the whole-block route (K4) with int8 K/V
+    through K3 on CUDA graphs: LakoService at t5-large width retrieves each
+    request's facts with a BERT-base retriever (RetrieverConfig's defaults,
+    random weights from init_retriever) from an exact DenseIndex of
+    LAKO_FACTS x LAKO_DIM f32 rows (rows 0-RETRIEVAL_CORPUS-1 the retriever's
+    own embeddings of a seeded corpus, the rest seeded normal rows scaled to
+    the norms of those embeddings), then reads. Each request's facts are
+    held to a float64 top-n_context of the same question embeddings over
+    the index, the answers to those the service gives with the retrieved
+    facts passed in, and K4's and K3's launches to run_slice's counts for 20
+    requests. Prints answers/s with and without retrieval, retrieval ms a
+    batch (embedding and search, CUDA events), peak memory and the card.
+    Returns the served run's launches."""
+    from lako_tpu_torch.core.config import RetrieverConfig
+    from lako_tpu_torch.models.bert import init_retriever
+    from lako_tpu_torch.retrieval.embed import embed_corpus, make_embed_fn
+    from lako_tpu_torch.retrieval.index import DenseIndex
+    from lako_tpu_torch.serve import LakoService
+    from lako_tpu_torch.text.tokenizer import WordVocabTokenizer
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, tok, requests = serving_setup(dev)
+    t5 = serving_t5("fused")
+    questions = [{"question": r["question"], "caption": r["caption"]} for r in requests]
+    rcfg = RetrieverConfig()
+    retriever = init_retriever(rcfg, torch.Generator(device=dev).manual_seed(SEED))
+    corpus = synthetic_corpus(RETRIEVAL_CORPUS, SEED)
+    rest = synthetic_corpus(LAKO_FACTS - RETRIEVAL_CORPUS, SEED + 1)
+    sentences = [r["sentence"] for r in corpus] + [r["sentence"] for r in rest]
+    btok = WordVocabTokenizer.build(sentences[:RETRIEVAL_CORPUS] + [
+        f"{q['question']} {q['caption']}" for q in questions], style="bert")
+    t0 = time.perf_counter()
+    _, own = embed_corpus(retriever, corpus, btok)
+    embed_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    filler = rng.standard_normal((LAKO_FACTS - RETRIEVAL_CORPUS, LAKO_DIM)).astype(np.float32)
+    norms = np.linalg.norm(own, axis=1)[rng.integers(RETRIEVAL_CORPUS, size=len(filler))]
+    filler *= (norms / np.linalg.norm(filler, axis=1))[:, None]
+    emb = np.concatenate([own, filler])
+    index = DenseIndex(emb, device=dev)
+    bert = rcfg.bert
+    log(f"served retrieval: t5-large ({t5.num_layers}+{t5.num_decoder_layers} layers), bf16, "
+        f"whole-block route K4 (flash_min_length={t5.flash_min_length} > L="
+        f"{cfg.data.text_maxlength}), int8 K/V through K3 on CUDA graphs, B={cfg.batch_size}, "
+        f"n_context {cfg.n_context}; retriever BERT ({bert.num_hidden_layers} layers, hidden "
+        f"{bert.hidden_size}, {bert.num_attention_heads} heads), indexing_dimension "
+        f"{rcfg.indexing_dimension}, question_maxlength {rcfg.question_maxlength}, f32, random "
+        f"weights (init_retriever, seed {SEED}); exact DenseIndex {LAKO_FACTS} x {LAKO_DIM} f32 "
+        f"({emb.nbytes / 1e6:.1f} MB): rows 0-{RETRIEVAL_CORPUS - 1} the retriever's "
+        f"embeddings of synthetic_corpus({RETRIEVAL_CORPUS}, {SEED}) ({RETRIEVAL_CORPUS / embed_s:.1f} "
+        f"sentences/s), the rest seeded normal rows at those norms; {len(requests)} requests "
+        f"without facts")
+    service = LakoService(cfg, t5, params, tok, retriever=retriever, bert_tokenizer=btok,
+                          index=index, id_to_sentence=dict(enumerate(sentences)), device=dev)
+    del retriever
+    service.answer_batch(questions[:1])          # warm-up: cuBLAS, the graph capture
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    examples, tokens = service.generate_tokens(questions)
+    with_s = time.perf_counter() - t0
+    launches = read_counts()
+    check_counts("the served run with retrieval (whole-block route)", launches,
+                 {"fused_attention": 3 * t5.num_layers,
+                  "fused_decode_cross_attention": 3 * t5.num_decoder_layers})
+
+    # the facts against a float64 top-n_context of the same question embeddings
+    k = cfg.n_context
+    texts = [q["question"] + " " + q["caption"] for q in questions]
+    q_emb = make_embed_fn(service.retriever, "q")(
+        *btok.batch_encode(texts, rcfg.question_maxlength))
+    emb64 = torch.as_tensor(emb, dtype=torch.float64, device=dev)
+    oracle_ids, oracle_s, exact64 = float64_topk(dev, emb64, q_emb, k)
+    got_ids = np.array([[f["id"] for f in ex["fact"]] for ex in examples])
+    got_s = np.array([[f["score"] for f in ex["fact"]] for ex in examples], np.float32)
+    if got_ids.shape != (len(questions), k) or any(
+            f["sentence"] != sentences[f["id"]] for ex in examples for f in ex["fact"]):
+        raise AssertionError("served retrieval: the facts are not n_context corpus rows")
+    swapped, rel = check_against_oracle("served retrieval", got_ids, got_s, oracle_ids,
+                                        oracle_s, exact64)
+    own_rows = int((got_ids < RETRIEVAL_CORPUS).sum())
+    del emb64
+
+    # the same requests with the retrieved facts passed in, then each way again
+    explicit = [dict(q, fact=ex["fact"]) for q, ex in zip(questions, examples)]
+    seconds = {"with": [with_s], "without": []}
+    for kind in ("without", "with", "without"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, again = service.generate_tokens(questions if kind == "with" else explicit)
+        seconds[kind].append(time.perf_counter() - t0)
+        require_same(f"answers {kind} retrieval against the first run's", again, tokens)
+    retrieval_ms = event_ms(lambda: service.retrieve_facts(questions[:cfg.batch_size]))
+    answers = tok.batch_decode(tokens)
+    log(f"  facts against a float64 top-{k} of the same question embeddings: scores within "
+        f"{rel:.3e} (relative; bound {SCORE_RTOL:g}), ids equal at {got_ids.size - swapped} of "
+        f"{got_ids.size} ranks, {swapped} swapped within the float32 rounding; {own_rows} of "
+        f"them embedded sentences, {got_ids.size - own_rows} filler rows")
+    rates = {k: [round(len(questions) / s, 2) for s in v] for k, v in seconds.items()}
+    log(f"  {len(questions)} requests (3 batches), answers/s in turns, host clock: with "
+        f"retrieval {rates['with']}, with the retrieved facts passed in {rates['without']}; "
+        f"retrieval {retrieval_ms:.3f} ms a batch of {cfg.batch_size} (embedding and search, "
+        f"CUDA events, 5 calls); peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"first answers {[a[:40] for a in answers[:2]]!r}; {power_line()}")
+    del service, index
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"served retrieval phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return {"fused": launches}
+
+
+def loop_inputs(tmp: Path) -> None:
+    """Seeded synthetic KG triples and cache-format questions about the
+    fixture's animals, with captions: the inputs of mine-candidates."""
+    rng = np.random.default_rng(SEED)
+    triples = [[a, "says", s] for a, s in zip(ANIMALS, SOUNDS)]
+    triples += [[str(SUBJECTS[a]), str(RELATIONS[b]), f"{ADJECTIVES[c]} {OBJECTS[d]}"]
+                for a, b, c, d in zip(*(rng.integers(len(w), size=LOOP_TRIPLES - len(triples))
+                                        for w in (SUBJECTS, RELATIONS, ADJECTIVES, OBJECTS)))]
+    captions = {}
+    for split, n in (("train", LOOP_TRAIN), ("eval", LOOP_EVAL)):
+        rows = []
+        for i in range(n):
+            a = int(rng.integers(len(ANIMALS)))
+            img = f"{split}{i}"
+            rows.append({"sent": f"what sound does the {ANIMALS[a]} make?",
+                         "label": {SOUNDS[a]: 1.0}, "img_id": img, "question_id": i})
+            captions[img] = [f"a {ANIMALS[a]} near the {OBJECTS[int(rng.integers(len(OBJECTS)))]}",
+                             {"caption": f"an animal in a {ADJECTIVES[int(rng.integers(12))]} "
+                                         f"{OBJECTS[int(rng.integers(len(OBJECTS)))]}."}]
+        (tmp / f"{split}_rows.json").write_text(json.dumps(rows))
+    (tmp / "triples.json").write_text(json.dumps(triples))
+    (tmp / "captions.json").write_text(json.dumps(captions))
+
+
+def serve_and_post(argv, cwd: Path, log_path: Path, request: dict):
+    """``python -m lako_tpu_torch.pipeline serve ... --port 0`` as a
+    subprocess: waits for the URL it prints, POSTs ``request`` once and
+    stops the process. Returns (the answer, seconds to start, seconds of
+    the POST)."""
+    import queue
+
+    t0 = time.perf_counter()
+    with open(log_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "lako_tpu_torch.pipeline", *argv,
+                                 "--port", "0"], cwd=cwd, stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+        try:
+            lines: "queue.Queue" = queue.Queue()
+            threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout] + [lines.put("")],
+                             daemon=True).start()
+            url = None
+            while url is None:
+                line = lines.get(timeout=max(1.0, SERVE_START_S - (time.perf_counter() - t0)))
+                if not line:
+                    raise AssertionError(f"serve ended with code {proc.wait()} before serving: "
+                                         f"{log_path.read_text()[-2000:]}")
+                if line.startswith("{"):
+                    url = json.loads(line).get("serving")
+            started = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            http = urllib.request.Request(url, data=json.dumps(request).encode(),
+                                          headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(http, timeout=300) as resp:
+                answer = json.loads(resp.read())
+            return answer, started, time.perf_counter() - t1
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def run_lako_loop(dev):
+    """LaKo's CLI chain at full width and cut depth, in a temporary
+    directory: mine-candidates over LOOP_TRIPLES seeded triples writes the
+    corpus and each question's BM25 candidates (LOOP_TRAIN train and
+    LOOP_EVAL eval questions); build-tokenizer for the reader and the
+    retriever; full-loop --iterations 2 --fact-ablation with t5-large's
+    widths at LOOP_LAYERS + LOOP_LAYERS layers on the streamed route (K1,
+    K2a/K2b/K2c; flash_min_length=128) and bert-base's at LOOP_BERT_LAYERS
+    layers; then serve, as a subprocess, on the last iteration's reader,
+    retriever, fact index and corpus, and one POST to it. Checks the
+    history's JSON schema and diagnostics, the two readers' hashes differ,
+    hit@k, the training steps' kernel launches (STEP_LAUNCHES x steps, the
+    evaluations' K1 beside them) and the POST's answer and facts. Returns
+    the loop's launches."""
+    from lako_tpu_torch.core.config import (
+        OptimConfig,
+        ReaderDataConfig,
+        ReaderTrainConfig,
+        RetrieverTrainConfig,
+        t5_config_for_size,
+    )
+
+    t_phase = time.perf_counter()
+    # the card by default; a CPU rehearsal asks for its device
+    device = [] if dev.type == "cuda" else ["--device", str(dev)]
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        loop_inputs(tmp)
+        t0 = time.perf_counter()
+        for split in ("train", "eval"):
+            mined = cli(["mine-candidates", "--triples", str(tmp / "triples.json"), "--data",
+                         str(tmp / f"{split}_rows.json"), "--captions", str(tmp / "captions.json"),
+                         "--out", str(tmp / f"{split}.json"), "--corpus-out",
+                         str(tmp / "corpus.json")])
+            if mined != {"examples": {"train": LOOP_TRAIN, "eval": LOOP_EVAL}[split],
+                         "out": str(tmp / f"{split}.json")}:
+                raise AssertionError(f"mine-candidates: {mined}")
+        corpus = json.loads((tmp / "corpus.json").read_text())
+        train = json.loads((tmp / "train.json").read_text())
+        n_cand = [len(ex["fact"]) for ex in train]
+        mine_s = time.perf_counter() - t0
+        tok_out = cli(["build-tokenizer", "--from-json", str(tmp / "train.json"),
+                       str(tmp / "eval.json"), str(tmp / "corpus.json"), "--out",
+                       str(tmp / "tok.json")])
+        btok_out = cli(["build-tokenizer", "--from-json", str(tmp / "train.json"),
+                        str(tmp / "eval.json"), str(tmp / "corpus.json"), "--out",
+                        str(tmp / "btok.json"), "--style", "bert"])
+        t5 = t5_config_for_size("large", vocab_size=tok_out["vocab_size"], dropout_rate=0.0,
+                                use_flash_attention=True).replace(
+            flash_min_length=128, num_layers=LOOP_LAYERS, num_decoder_layers=LOOP_LAYERS)
+        reader = ReaderTrainConfig(
+            model_size="large", per_device_batch_size=8, eval_batch_size=8, epochs=LOOP_EPOCHS,
+            early_stop=LOOP_EPOCHS, eval_max_length=20, use_remat=True, dtype="bfloat16",
+            param_dtype="float32", seed=SEED, data=ReaderDataConfig(),
+            optim=OptimConfig(optim="adamw"))
+        retriever = RetrieverTrainConfig(epochs=LOOP_EPOCHS, early_stop=LOOP_EPOCHS, seed=SEED)
+        retriever = retriever.replace(retriever=retriever.retriever.replace(
+            bert=retriever.retriever.bert.replace(num_hidden_layers=LOOP_BERT_LAYERS)))
+        for name, obj in (("t5", t5), ("reader", reader), ("retriever", retriever)):
+            (tmp / f"{name}_cfg.json").write_text(json.dumps(dataclasses.asdict(obj)))
+        bert = retriever.retriever.bert
+        log(f"LaKo loop: mine-candidates over {len(corpus)} triples ({mine_s:.2f} s): "
+            f"{LOOP_TRAIN} train / {LOOP_EVAL} eval questions, {min(n_cand)}-{max(n_cand)} "
+            f"BM25 candidates each; tokenizers {tok_out['vocab_size']} / "
+            f"{btok_out['vocab_size']} words; reader t5-large widths (d_model {t5.d_model}, "
+            f"{t5.num_heads} heads, d_kv {t5.d_kv}, d_ff {t5.d_ff}) cut to {t5.num_layers}+"
+            f"{t5.num_decoder_layers} layers (of 24+24), streamed kernels "
+            f"(flash_min_length=128), bf16, f32 masters, remat, AdamW, B=8, n_context "
+            f"{reader.data.n_context}, {LOOP_EPOCHS} epoch; retriever bert-base widths (hidden "
+            f"{bert.hidden_size}, {bert.num_attention_heads} heads) cut to "
+            f"{bert.num_hidden_layers} layers (of 12), B={retriever.per_device_batch_size}, "
+            f"{LOOP_EPOCHS} epoch; data cut to {LOOP_TRAIN} + {LOOP_EVAL} questions (of OK-VQA's "
+            f"9,009 + 5,046) and {LOOP_TRIPLES} triples (of {LAKO_FACTS})")
+
+        reset_counts()
+        t0 = time.perf_counter()
+        out = cli(["full-loop", "--workdir", str(tmp / "loop"),
+                   "--reader-config", str(tmp / "reader_cfg.json"),
+                   "--retriever-config", str(tmp / "retriever_cfg.json"),
+                   "--t5-config", str(tmp / "t5_cfg.json"), "--train-data",
+                   str(tmp / "train.json"), "--eval-data", str(tmp / "eval.json"),
+                   "--corpus", str(tmp / "corpus.json"), "--tokenizer", str(tmp / "tok.json"),
+                   "--bert-tokenizer", str(tmp / "btok.json"), "--iterations", "2",
+                   "--fact-ablation", *device])
+        loop_s = time.perf_counter() - t0
+        launches = read_counts()
+        history = out["history"]
+        steps = [json.loads((Path(h["diagnostics"]["reader_ckpt"]).parent / "last" /
+                             "meta.json").read_text())["step"] for h in history]
+        eval_batches = sum(
+            -(-n // reader.eval_batch_size)
+            for n in (LOOP_EVAL,) * LOOP_EPOCHS + (LOOP_TRAIN, LOOP_EVAL, LOOP_EVAL)) * len(history)
+        expected = {n: c * t5.num_layers * sum(steps)
+                    for n, c in STEP_LAUNCHES["streamed"].items()}
+        expected["streamed_attention"] += t5.num_layers * eval_batches
+        log(f"  full-loop: 2 iterations in {loop_s:.1f} s; reader steps {steps}; history "
+            + json.dumps([{k: v for k, v in h.items() if k != "diagnostics"} for h in history]))
+        log(f"  diagnostics: {json.dumps([h['diagnostics'] for h in history])}")
+        check_counts("full-loop (the training steps' STEP_LAUNCHES, and K1 in each evaluation "
+                     f"batch: {eval_batches})", launches, expected)
+        hashes = [h["diagnostics"]["reader_ckpt_sha256"] for h in history]
+        if (out["iterations"] != 2 or [h["iteration"] for h in history] != ["v1", "v2"]
+                or any(sorted(h) != HISTORY_KEYS_LOOP for h in history)
+                or [sorted(h["diagnostics"]) for h in history] != [DIAGNOSTIC_KEYS[1],
+                                                                    DIAGNOSTIC_KEYS[2]]
+                or any(sorted(h["eval"]) != RESULT_KEYS for h in history)
+                or any(not h["hit_at_k_include"] for h in history)
+                or not all(isinstance(x, str) and len(x) == 16 for x in hashes)
+                or hashes[0] == hashes[1]
+                or json.loads((tmp / "loop" / "full_loop_history.json").read_text()) != history):
+            raise AssertionError("full-loop: the history is not the JAX loop's, or the two "
+                                 "iterations' readers hash equal")
+
+        # serve the last iteration's reader, retriever, index and corpus
+        loop = tmp / "loop"
+        retriever_ckpt = loop / "retriever_v2" / "checkpoint"
+        retriever_ckpt = retriever_ckpt / ("best_dev" if (retriever_ckpt / "best_dev").exists()
+                                           else "last")
+        request = {"question": "what sound does the owl make?",
+                   "caption": "an owl in a tall tree near the barn."}
+        answer, started, post_s = serve_and_post(
+            ["serve", "--config", str(tmp / "reader_cfg.json"), "--t5-config",
+             str(tmp / "t5_cfg.json"), "--model-path", history[1]["diagnostics"]["reader_ckpt"],
+             "--tokenizer", str(tmp / "tok.json"), "--retriever-config",
+             str(tmp / "retriever_cfg.json"), "--retriever-path", str(retriever_ckpt),
+             "--bert-tokenizer", str(tmp / "btok.json"), "--index",
+             str(loop / "fact_index_v2"), "--corpus", str(tmp / "corpus.json"), *device],
+            Path(__file__).resolve().parent, tmp / "serve.log", request)
+        ids = {r["id"] for r in corpus}
+        log(f"  serve (a subprocess) on reader_v2, retriever_v2, fact_index_v2: up in "
+            f"{started:.1f} s, one POST in {post_s * 1e3:.1f} ms: {json.dumps(answer)[:400]}")
+        if not (isinstance(answer, list) and len(answer) == 1
+                and isinstance(answer[0].get("answer"), str)
+                and len(answer[0]["facts"]) == reader.data.n_context
+                and all(f["id"] in ids and f["sentence"] == corpus[f["id"]]["sentence"]
+                        for f in answer[0]["facts"])):
+            raise AssertionError(f"serve: bad answer {answer!r}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"LaKo loop phase: {time.perf_counter() - t_phase:.1f} s wall; {power_line()}")
+    return {"streamed": launches}
+
+
+
 # the main-path run each kernel's launch count comes from: (phase, route)
 LAUNCHES_FROM = {"streamed_attention": ("training", "streamed"),
                  "streamed_attention_bwd_dkdv": ("training", "streamed"),
@@ -2537,12 +2897,12 @@ def main() -> int:
         return 2
     from lako_tpu_torch.ops import _build
 
+    t_script = time.perf_counter()
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = power_line()
     kind = torch.cuda.get_device_name(0)
     log(f"card: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}, "
@@ -2585,6 +2945,12 @@ def main() -> int:
     runs["retriever"] = run_retriever_pipeline(dev)  # no kernel: the counts stay 0
     gc.collect()
     torch.cuda.empty_cache()
+    runs["served_retrieval"] = run_served_retrieval(dev)  # K4 and K3, facts retrieved
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["loop"] = run_lako_loop(dev)            # K1 + K2a/K2b/K2c through full-loop
+    gc.collect()
+    torch.cuda.empty_cache()
     runs["profiled"] = run_profiled(dev)         # K3 in captured chunks, from a trace
     for entry_ in kernels:
         phase, route = LAUNCHES_FROM[entry_["name"]]
@@ -2595,6 +2961,7 @@ def main() -> int:
         f"streamed route's train_reader run, K3 from the chunked service's profiled run, "
         f"with its device_launches from the trace, K4 and K5 from the whole-block route's "
         f"train_reader run, K6 from the floor proof)")
+    log(f"the whole script: {time.perf_counter() - t_script:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,16 +1,16 @@
 """Serving: answer knowledge-based questions with the FiD reader.
 
-Counterpart of lako_tpu/serve.py. ``LakoService.answer_batch`` collates the
-requests into fixed ``(B, N, L)`` batches, encodes the passages and decodes
-them (models/t5/decode.py ``make_best_generate_fn``: greedy or beam search,
-on the stacked-weight engines or the layer-unrolled path), under
-``torch.inference_mode``. A stdlib HTTP endpoint wraps it, optionally behind
-a micro-batcher.
-
-Requests carry their own facts: retrieval is not ported yet, so
-``retrieve_facts`` returns no facts, as the JAX service does without a
-retriever. Tensor-parallel serving (``mesh_model > 1``) is not ported yet and
-is refused at construction.
+Counterpart of lako_tpu/serve.py. ``LakoService.answer_batch`` retrieves
+facts for the requests that carry none (the BERT retriever embeds
+``question + " " + caption`` and the fact index returns the top
+``n_context``), collates the requests into fixed ``(B, N, L)`` batches,
+encodes the passages and decodes them (models/t5/decode.py
+``make_best_generate_fn``: greedy or beam search, on the stacked-weight
+engines or the layer-unrolled path), under ``torch.inference_mode``.
+Retrieval runs before decoding starts, outside the decode engine's CUDA
+graphs. A stdlib HTTP endpoint wraps it, optionally behind a micro-batcher.
+Tensor-parallel serving (``mesh_model > 1``) is not ported yet and is
+refused at construction.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from __future__ import annotations
 import json
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, List, Mapping, Optional, Sequence, Tuple
+from typing import Deque, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +29,9 @@ from lako_tpu_torch.core.logging import get_logger
 from lako_tpu_torch.data import ReaderCollator, ReaderDataset
 from lako_tpu_torch.models.t5.decode import make_best_generate_fn
 from lako_tpu_torch.models.t5.engine import DecodeEngine
+from lako_tpu_torch.models.retriever import Retriever
 from lako_tpu_torch.models.t5.model import FiDT5
+from lako_tpu_torch.retrieval.embed import make_embed_fn
 
 
 @dataclass
@@ -65,12 +67,18 @@ class ServiceConfig:
 
 
 class LakoService:
-    """The reader behind an ``answer_batch`` call.
+    """The retriever and the reader behind an ``answer_batch`` call.
 
     ``reader_params`` is a FiDT5 ``state_dict`` (for instance from
     ``models.t5.params_from_jax`` or ``init_fid_t5(...).state_dict()``); the
     service builds its own model on ``device`` (the CUDA card unless given;
-    it raises without one) and loads it.
+    it raises without one) and loads it. Likewise ``retriever`` (a
+    ``Retriever``, on any device, the meta device included) gives the
+    retriever's config and dtype and ``retriever_params`` its weights
+    (default: the module's own); ``index`` is a ``DenseIndex`` or
+    ``PQIndex`` over the fact embeddings and ``id_to_sentence`` maps its ids
+    to fact sentences. Without a retriever or an index, requests without
+    facts are answered without facts.
 
     ``engine_policy="auto"`` runs two greedy programs on one engine, the
     full-length one and a chunked early-exit one (``decode_chunk_size or
@@ -83,6 +91,11 @@ class LakoService:
 
     def __init__(self, cfg: ServiceConfig, t5_config: T5Config,
                  reader_params: Mapping[str, torch.Tensor], tokenizer,
+                 retriever: Optional[Retriever] = None,
+                 retriever_params: Optional[Mapping[str, torch.Tensor]] = None,
+                 bert_tokenizer=None,
+                 index=None,                      # DenseIndex / PQIndex
+                 id_to_sentence: Optional[Dict[int, str]] = None,
                  device: Optional[torch.device] = None):
         if cfg.engine_policy not in ("fixed", "auto"):
             raise ValueError(
@@ -154,11 +167,33 @@ class LakoService:
         # ("chunked" | "full", occupancy) per device batch, bounded
         self.policy_decisions: Deque[tuple] = deque(maxlen=4096)
 
+        self.retriever = None
+        if retriever is not None:
+            with torch.device(self.device):
+                self.retriever = Retriever(retriever.config, retriever.dtype)
+            self.retriever.load_state_dict(retriever.state_dict() if retriever_params is None
+                                           else retriever_params)
+            self.retriever.eval().requires_grad_(False)
+            self._embed_q = make_embed_fn(self.retriever, "q")
+        self.bert_tokenizer = bert_tokenizer
+        self.index = index
+        self.id_to_sentence = id_to_sentence or {}
+
     # -- retrieval -----------------------------------------------------------
 
     def retrieve_facts(self, questions: Sequence[dict]) -> List[List[dict]]:
-        """No retriever is ported yet: every question gets no facts."""
-        return [[] for _ in questions]
+        """questions: [{question, caption}] → per-question fact lists
+        ``[{sentence, id, score}]``, the top ``min(n_context, index.n)``."""
+        if self.index is None or self.retriever is None:
+            return [[] for _ in questions]
+        texts = [q["question"] + " " + q.get("caption", "") for q in questions]
+        emb = self._embed_q(*self.bert_tokenizer.batch_encode(
+            texts, self.retriever.config.question_maxlength))
+        k = min(self.cfg.n_context, getattr(self.index, "n", self.cfg.n_context))
+        top_ids, scores = self.index.search(emb, k=k)
+        return [[{"sentence": self.id_to_sentence.get(int(i), ""), "id": int(i),
+                  "score": float(s)} for i, s in zip(row_ids, row_scores)]
+                for row_ids, row_scores in zip(top_ids, scores)]
 
     # -- reading -------------------------------------------------------------
 

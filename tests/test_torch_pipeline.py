@@ -39,14 +39,19 @@ READER = dict(model_size="tiny", eval_batch_size=8, epochs=3, early_stop=3, eval
 SIDES = {"jax": (jax_cli, 1, []), "port": (port_cli, 8, ["--device", "cpu"])}
 
 
+# the package loggers as collection found them, before any test ran
+_LOGGERS = {n: (lg.handlers[:], lg.level, lg.propagate) for n in ("lako_tpu", "lako_tpu_torch")
+            for lg in [logging.getLogger(n)]}
+
+
 @pytest.fixture(autouse=True)
 def _restore_loggers():
     """cli.main's init_logger replaces the package loggers' handlers and
-    stops their propagation; give later tests (caplog) the loggers back."""
-    saved = {n: (lg.handlers[:], lg.level, lg.propagate) for n in ("lako_tpu", "lako_tpu_torch")
-             for lg in [logging.getLogger(n)]}
+    stops their propagation; after each test, give later tests (caplog) the
+    loggers as collection found them. (Saved here instead, the state would
+    already be the CLI's when a module-scoped fixture ran it first.)"""
     yield
-    for n, (handlers, level, propagate) in saved.items():
+    for n, (handlers, level, propagate) in _LOGGERS.items():
         lg = logging.getLogger(n)
         lg.handlers[:], lg.level, lg.propagate = handlers, level, propagate
 
@@ -173,7 +178,7 @@ def test_eval_reader_beam_and_its_refusal(runs):
 def test_unported_inputs_raise(runs, tmp_path, monkeypatch):
     """An HF checkpoint directory names ROADMAP item 9, more than one process
     item 12, an HF tokenizer kind item 9; --help names the item of each
-    subcommand and option left out, and no longer the retriever's."""
+    option left out, and no subcommand: every one is ported."""
     from lako_tpu_torch.core.config import AttentionSignalConfig, ReaderTrainConfig
 
     d = runs["port"]["dir"]
@@ -194,8 +199,11 @@ def test_unported_inputs_raise(runs, tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="ROADMAP item 9"):
         port_cli(["build-tokenizer", "--from-json", args[1], "--out", str(tmp_path / "t.json"),
                   "--kind", "unigram"])
-    epilog = " ".join(build_parser().format_help().split())
-    for text in ("full-loop (9)", "serve (11, with 9)", "retrieve --sharded-index (12)"):
+    assert build_parser().epilog in build_parser().format_help()
+    epilog = " ".join(build_parser().epilog.split())
+    for text in ("build-tokenizer --kind unigram|wordpiece (9)", "retrieve --sharded-index (12)",
+                 "serve --mesh-model > 1 (11)"):
         assert text in epilog, text
-    for text in ("train-retriever (7)", "embed-facts, retrieve (8)", "eval-facts,"):
+    for text in ("train-retriever (7)", "embed-facts, retrieve (8)", "eval-facts,",
+                 "full-loop (9)", "mine-candidates", "prep-questions", "serve (11, with 9)"):
         assert text not in epilog, text

@@ -44,14 +44,19 @@ SIDES = {"jax": (jax_cli, jax_stages, 1, []), "port": (port_cli, stages, 8, ["--
 METHODS = ("exact", "fast", "pq")
 
 
+# the package loggers as collection found them, before any test ran
+_LOGGERS = {n: (lg.handlers[:], lg.level, lg.propagate) for n in ("lako_tpu", "lako_tpu_torch")
+            for lg in [logging.getLogger(n)]}
+
+
 @pytest.fixture(autouse=True)
 def _restore_loggers():
     """cli.main's init_logger replaces the package loggers' handlers and
-    stops their propagation; give later tests (caplog) the loggers back."""
-    saved = {n: (lg.handlers[:], lg.level, lg.propagate) for n in ("lako_tpu", "lako_tpu_torch")
-             for lg in [logging.getLogger(n)]}
+    stops their propagation; after each test, give later tests (caplog) the
+    loggers as collection found them. (Saved here instead, the state would
+    already be the CLI's when a module-scoped fixture ran it first.)"""
     yield
-    for n, (handlers, level, propagate) in saved.items():
+    for n, (handlers, level, propagate) in _LOGGERS.items():
         lg = logging.getLogger(n)
         lg.handlers[:], lg.level, lg.propagate = handlers, level, propagate
 

@@ -149,7 +149,7 @@ def test_microbatcher_coalesces_and_isolates(services):
 
 def test_unported_service_options_raise(services):
     """What the service still refuses: tensor-parallel serving (ROADMAP item
-    11); retrieval is absent (no facts)."""
+    11); without a retriever and an index, requests get no facts."""
     _, psvc, params = services
     t5 = port_config.T5Config(**dict(TINY, vocab_size=psvc.tokenizer.vocab_size))
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
@@ -340,7 +340,11 @@ def test_port_imports_no_jax():
             "'lako_tpu_torch.models.bert.model', 'lako_tpu_torch.models.bert.convert', "
             "'lako_tpu_torch.models.retriever', 'lako_tpu_torch.train.retriever', "
             "'lako_tpu_torch.retrieval.embed', 'lako_tpu_torch.retrieval.index', "
-            "'lako_tpu_torch.retrieval.pq', 'lako_tpu_torch.retrieval.eval'} <= set(names), "
+            "'lako_tpu_torch.retrieval.pq', 'lako_tpu_torch.retrieval.eval', "
+            "'lako_tpu_torch.retrieval.verbalize', 'lako_tpu_torch.retrieval.bm25', "
+            "'lako_tpu_torch.retrieval.candidates', 'lako_tpu_torch.text.vqa_answers', "
+            "'lako_tpu_torch.data.prompt', 'lako_tpu_torch.text.dictionary', "
+            "'lako_tpu_torch.pipeline.full_loop'} <= set(names), "
             "names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'msgpack', 'lako_tpu', 'regex', 'nltk', 'transformers')]; "
