@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit, torch's device name).
-2. Builds the CUDA kernels from ``lako_tpu_torch/csrc`` with nvcc and, beside
-   the build, prints the registers and spill bytes ptxas reports for each
+2. Builds the CUDA kernels from ``lako_tpu_torch/csrc`` with nvcc and the
+   host engines from ``lako_tpu_torch/csrc/host`` with g++ (a failed build
+   fails the run) and, beside the build, prints the registers and spill bytes ptxas reports for each
    kernel of ``PTXAS_SOURCES`` (K1, K4, the streamed backward, K3, K5/K6),
    and K5's SASS instruction count (cuobjdump -sass).
 3. Checks each kernel against its plain PyTorch version on the card, at the
@@ -138,12 +139,31 @@
    then ``serve`` as a subprocess on the last iteration's reader,
    retriever, fact index and corpus, and one POST to it (an answer and
    n_context facts of the corpus).
-11. After every timed phase, under torch.profiler: a new chunked service
+11. Warm start from an HF checkpoint (``run_hf_warm_start``): whether
+   ``tokenizers`` and ``safetensors`` are installed (not imported); t5-large
+   at full width and depth (24+24 layers, vocab 32,128, relu, tied, dropout
+   0) written by this script as an HF save_pretrained directory
+   (config.json, one f32 model.safetensors under HF's tensor names) and read
+   back by ``load_hf_t5`` onto the card, every tensor bitwise (GB/s); a
+   unigram tokenizer.json from ``build-tokenizer --kind unigram`` (without
+   ``tokenizers``: written here in the trainer's layout, the CLI raising
+   naming the package), its ids by ``load_tokenizer``, the plain reader and
+   ``tokenizers`` equal; ``train-reader --model-path <dir>`` with Adafactor,
+   B=8, N=2, L=130, on the streamed route for 4 steps and one evaluation
+   (K1, K2a/K2b/K2c counted), its first loss within 1e-5 of the same
+   weights' loss in this process, and ``eval-reader --model-path <dir>``;
+   examples/s, peak memory and optimizer-state bytes of Adafactor beside
+   AdamW; ``NativeIndex`` and ``HostIndex`` at 300,600 x 256, 64 queries,
+   k=500, against the exact DenseIndex (host ms a batch); a seeded obj36
+   TSV (256 images x 36 boxes x 2048 features) by the C++ and the Python
+   loader, arrays equal (rows/s). Phase 10's mine-candidates ranks with the
+   C++ BM25.
+12. After every timed phase, under torch.profiler: a new chunked service
    serves the 20 requests; the kernel wrappers' counts (the launches a
    capture records count once, a replay calls no wrapper) and the K3
    kernels that ran on the card, graph replays included, each against the
    count the batches' chunks imply; then the kernels of one decode step.
-12. Prints the whole script's time, the kernel summary as one JSON line,
+13. Prints the whole script's time, the kernel summary as one JSON line,
     the nvidia-smi line again,
     and last ``{"ok": true, "device": {...}}``.
 
@@ -162,6 +182,7 @@ import io
 import json
 import logging
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -2757,6 +2778,7 @@ def run_lako_loop(dev):
         RetrieverTrainConfig,
         t5_config_for_size,
     )
+    from lako_tpu_torch.retrieval import candidates
 
     t_phase = time.perf_counter()
     # the card by default; a CPU rehearsal asks for its device
@@ -2764,6 +2786,9 @@ def run_lako_loop(dev):
     with tempfile.TemporaryDirectory() as tmp_dir:
         tmp = Path(tmp_dir)
         loop_inputs(tmp)
+        if dev.type == "cuda" and candidates.bm25_backend() != "C++":
+            raise AssertionError("mine-candidates would rank with the Python BM25: the host "
+                                 "library did not load")
         t0 = time.perf_counter()
         for split in ("train", "eval"):
             mined = cli(["mine-candidates", "--triples", str(tmp / "triples.json"), "--data",
@@ -2797,7 +2822,8 @@ def run_lako_loop(dev):
         for name, obj in (("t5", t5), ("reader", reader), ("retriever", retriever)):
             (tmp / f"{name}_cfg.json").write_text(json.dumps(dataclasses.asdict(obj)))
         bert = retriever.retriever.bert
-        log(f"LaKo loop: mine-candidates over {len(corpus)} triples ({mine_s:.2f} s): "
+        log(f"LaKo loop: mine-candidates over {len(corpus)} triples with the "
+            f"{candidates.bm25_backend()} BM25 ({mine_s:.2f} s): "
             f"{LOOP_TRAIN} train / {LOOP_EVAL} eval questions, {min(n_cand)}-{max(n_cand)} "
             f"BM25 candidates each; tokenizers {tok_out['vocab_size']} / "
             f"{btok_out['vocab_size']} words; reader t5-large widths (d_model {t5.d_model}, "
@@ -2879,6 +2905,406 @@ def run_lako_loop(dev):
     return {"streamed": launches}
 
 
+# warm start from an HF checkpoint: t5-large in HF's layout, Adafactor, the host engines
+HF_VOCAB = 32_128                            # t5-large's vocabulary
+HF_STEPS = 4                                 # fine-tuning steps (8 examples each)
+HF_LOSS_RTOL = 1e-5                          # the CLI's first loss against the in-process one
+HOST_QUERIES, HOST_K = 64, 500               # the JAX docstring's host-index batch
+OBJ36_IMAGES, OBJ36_BOXES, OBJ36_DIM = 256, 36, 2048
+PACKAGES = ("tokenizers", "safetensors")
+
+
+def package_line(name: str) -> str:
+    """Whether ``name`` is importable here and its version, without
+    importing it (the port reads safetensors files without the package)."""
+    import importlib.metadata
+
+    if importlib.util.find_spec(name) is None:
+        return f"{name}: not installed"
+    try:
+        return f"{name} {importlib.metadata.version(name)}: importable"
+    except importlib.metadata.PackageNotFoundError:
+        return f"{name}: importable, no version metadata"
+
+
+def hf_t5_names(cfg):
+    """(this package's FiDT5 name, HF T5ForConditionalGeneration's name) for
+    every tensor save_pretrained writes for a tied relu T5: the script's own
+    table, written from HF's module layout."""
+    pairs = [("t5.shared.weight", "shared.weight")]
+    for stack, n, sub in (("encoder", cfg.num_layers, (("ln_attn", "self_attn", "SelfAttention"),
+                                                       ("ln_mlp", "mlp", "DenseReluDense"))),
+                          ("decoder", cfg.num_decoder_layers,
+                           (("ln_self", "self_attn", "SelfAttention"),
+                            ("ln_cross", "cross_attn", "EncDecAttention"),
+                            ("ln_mlp", "mlp", "DenseReluDense")))):
+        pairs.append((f"t5.{stack}.relpos.rel_embedding.weight",
+                      f"{stack}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"))
+        for i in range(n):
+            for j, (ln, ours, theirs) in enumerate(sub):
+                hf = f"{stack}.block.{i}.layer.{j}"
+                pairs.append((f"t5.{stack}.block_{i}.{ln}.weight", f"{hf}.layer_norm.weight"))
+                for w in (("wi", "wo") if theirs == "DenseReluDense" else "qkvo"):
+                    pairs.append((f"t5.{stack}.block_{i}.{ours}.{w}.weight",
+                                  f"{hf}.{theirs}.{w}.weight"))
+        pairs.append((f"t5.{stack}.final_ln.weight", f"{stack}.final_layer_norm.weight"))
+    return pairs
+
+
+def write_hf_t5(path: Path, cfg, state) -> int:
+    """An HF save_pretrained directory: config.json with t5-large's HF keys
+    and one float32 model.safetensors (8-byte header length, JSON header,
+    the raw tensors in header order). Returns the file's bytes."""
+    path.mkdir()
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["T5ForConditionalGeneration"], "model_type": "t5",
+        "d_model": cfg.d_model, "d_kv": cfg.d_kv, "d_ff": cfg.d_ff,
+        "num_layers": cfg.num_layers, "num_decoder_layers": cfg.num_decoder_layers,
+        "num_heads": cfg.num_heads, "vocab_size": cfg.vocab_size,
+        "relative_attention_num_buckets": cfg.relative_attention_num_buckets,
+        "relative_attention_max_distance": cfg.relative_attention_max_distance,
+        "dropout_rate": cfg.dropout_rate, "layer_norm_epsilon": cfg.layer_norm_epsilon,
+        "feed_forward_proj": "relu", "initializer_factor": 1.0, "is_encoder_decoder": True,
+        "pad_token_id": 0, "eos_token_id": 1, "decoder_start_token_id": 0,
+        "n_positions": 512, "tie_word_embeddings": True, "torch_dtype": "float32"}, indent=2))
+    header, offset, tensors = {"__metadata__": {"format": "pt"}}, 0, []
+    for ours, theirs in hf_t5_names(cfg):
+        t = state[ours].detach().to("cpu", torch.float32).contiguous()
+        header[theirs] = {"dtype": "F32", "shape": list(t.shape),
+                          "data_offsets": [offset, offset + t.numel() * 4]}
+        offset += t.numel() * 4
+        tensors.append(t)
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path / "model.safetensors", "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for t in tensors:
+            f.write(memoryview(t.numpy()).cast("B"))
+    return 8 + len(raw) + offset
+
+
+def write_unigram_layout(path: Path, texts) -> None:
+    """A tokenizer.json in HFTokenizer.train_unigram's layout, for a machine
+    without ``tokenizers``: the special pieces, ``▁``, each word with and
+    without ``▁`` and each character, scored by their counts."""
+    from collections import Counter
+
+    counts = Counter()
+    for text in texts:
+        for word in text.split():
+            counts["▁" + word] += 1
+            counts[word] += 1
+            counts.update(word)
+    total = sum(counts.values())
+    vocab = [["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0], ["▁", -2.0]]
+    vocab += [[p, math.log(c / total)] for p, c in counts.most_common() if p != "▁"]
+    metaspace = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+                 "split": True}
+    path.write_text(json.dumps({
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": c, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for i, c in enumerate(("<pad>", "</s>", "<unk>"))],
+        "normalizer": None, "pre_tokenizer": metaspace, "post_processor": None,
+        "decoder": metaspace,
+        "model": {"type": "Unigram", "unk_id": 2, "vocab": vocab, "byte_fallback": False}}))
+
+
+def cli_raises(argv, exc, match: str) -> str:
+    """``cli(argv)`` must raise ``exc`` whose message holds ``match``."""
+    from lako_tpu_torch.pipeline.cli import main as cli_main
+
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_main(argv)
+    except exc as e:
+        if match not in str(e):
+            raise AssertionError(f"{argv[0]} raised without naming {match}: {e}") from None
+        return str(e)
+    finally:
+        for handler in logging.getLogger("lako_tpu_torch").handlers:
+            handler.setStream(sys.stdout)
+    raise AssertionError(f"{argv[0]} did not raise {exc.__name__}")
+
+
+def hf_train_rate(dev, t5, state_dict, batch, optim_name):
+    """(examples/s, peak device GB, optimizer-state GB) of the warm-started
+    train step (bf16 compute, f32 masters, remat; host clock around
+    TIMED_STEPS synchronized steps after the first)."""
+    from lako_tpu_torch.core.checkpoint import flatten_tree
+    from lako_tpu_torch.core.config import OptimConfig
+    from lako_tpu_torch.models.t5 import init_fid_t5
+    from lako_tpu_torch.train.optim import make_optimizer
+    from lako_tpu_torch.train.reader import make_reader_train_step, model_params
+    from lako_tpu_torch.train.state import TrainState
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = init_fid_t5(t5, torch.Generator(device=dev).manual_seed(SEED), torch.bfloat16,
+                        use_remat=True)
+    model.load_state_dict(state_dict)
+    model.to(torch.float32)
+    tx = make_optimizer(OptimConfig(optim=optim_name, lr=1e-3, warmup_steps=0,
+                                    total_steps=100))
+    state = TrainState.create(model_params(model), tx)
+    opt_gb = sum(v.numel() * v.element_size() for v in flatten_tree(state.opt_state).values()
+                 if isinstance(v, torch.Tensor)) / 1e9
+    step = make_reader_train_step(model)
+    state, loss = step(state, *batch, SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        state, loss = step(state, *batch, SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"non-finite loss in the timed {optim_name} steps")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del model, state, step
+    return len(batch[0]) * TIMED_STEPS / seconds, peak, opt_gb
+
+
+def check_host_indexes(dev):
+    """NativeIndex and HostIndex at LaKo's scale against the exact DenseIndex
+    on the card; host ms per HOST_QUERIES-query batch of each."""
+    from lako_tpu_torch.retrieval.index import DenseIndex
+    from lako_tpu_torch.retrieval.native import HostIndex, NativeIndex
+
+    rng = np.random.default_rng(SEED + 7)
+    emb = rng.standard_normal((LAKO_FACTS, LAKO_DIM), dtype=np.float32)
+    queries = rng.standard_normal((HOST_QUERIES, LAKO_DIM), dtype=np.float32)
+    want_ids, want_s = DenseIndex(emb, device=dev).search(queries, HOST_K)
+    tol = 1e-5 * np.abs(want_s).max(axis=1)
+    times = {}
+    for name, index in (("NativeIndex", NativeIndex(emb)), ("HostIndex", HostIndex(emb))):
+        index.search(queries[:4], HOST_K)                        # warm-up
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            ids, scores = index.search(queries, HOST_K)
+            runs.append(time.perf_counter() - t0)
+        swapped = near_tie_check(name, ids, scores, want_ids, want_s, tol)
+        times[name] = runs
+        log(f"  {name}: {LAKO_FACTS:,} x {LAKO_DIM}, {HOST_QUERIES} queries, k={HOST_K}: "
+            f"{', '.join(f'{s * 1e3:.1f}' for s in runs)} ms a batch (host clock); against "
+            f"the exact DenseIndex on the card: scores within 1e-5 of each row's largest, "
+            f"{swapped} of {ids.size} ranks swapped within it")
+    ratio = min(times["NativeIndex"]) / min(times["HostIndex"])
+    log(f"  HostIndex is {ratio:.2f}x as fast as NativeIndex for this batch on {os.cpu_count()} "
+        f"host cores (the JAX docstring, lako_tpu/retrieval/native.py:7-11, claims ~15x)")
+
+
+def check_obj36(tmp: Path):
+    """A seeded obj36 TSV of OBJ36_IMAGES images decoded by the C++ and the
+    Python loader: equal arrays; rows/s of each."""
+    import base64
+
+    from lako_tpu_torch.data.vision import load_obj_tsv
+
+    rng = np.random.default_rng(SEED + 8)
+
+    def b64(a):
+        return base64.b64encode(a.tobytes()).decode()
+
+    n = OBJ36_BOXES
+    with open(tmp / "obj36.tsv", "w") as f:
+        for i in range(OBJ36_IMAGES):
+            f.write("\t".join([
+                f"img_{i}", "480", "640", b64(rng.integers(0, 1600, n).astype(np.int64)),
+                b64(rng.random(n, dtype=np.float32)),
+                b64(rng.integers(0, 400, n).astype(np.int64)),
+                b64(rng.random(n, dtype=np.float32)), str(n),
+                b64(rng.uniform(0, 400, (n, 4)).astype(np.float32)),
+                b64(rng.standard_normal((n, OBJ36_DIM), dtype=np.float32))]) + "\n")
+    seconds, rows = {}, {}
+    for backend in ("native", "python"):
+        t0 = time.perf_counter()
+        rows[backend] = load_obj_tsv(str(tmp / "obj36.tsv"), backend=backend)
+        seconds[backend] = time.perf_counter() - t0
+    if not len(rows["native"]) == len(rows["python"]) == OBJ36_IMAGES:
+        raise AssertionError("obj36: row counts differ")
+    for a, b in zip(rows["native"], rows["python"]):
+        if sorted(a) != sorted(b) or any(
+                not np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray) else a[k] != b[k]
+                for k in a):
+            raise AssertionError(f"obj36: the C++ and Python loaders differ at {a['img_id']}")
+    size = (tmp / "obj36.tsv").stat().st_size / 1e6
+    log(f"  obj36: {OBJ36_IMAGES} images x {n} boxes x {OBJ36_DIM} features ({size:.1f} MB "
+        f"TSV), every array equal; C++ {OBJ36_IMAGES / seconds['native']:.1f} rows/s, Python "
+        f"{OBJ36_IMAGES / seconds['python']:.1f} rows/s (host clock)")
+
+
+def run_hf_warm_start(dev):
+    """Fine-tuning the FiD reader from an HF save_pretrained directory, in a
+    temporary directory: t5-large at full width and depth written in HF's
+    layout (config.json, one f32 model.safetensors) from init_fid_t5 and
+    read back by load_hf_t5 onto the card, bitwise; a unigram tokenizer.json
+    (build-tokenizer --kind unigram, or the trainer's layout written here
+    without ``tokenizers``), its ids by load_tokenizer, the plain reader and
+    ``tokenizers``; train-reader --model-path <dir> with Adafactor on the
+    streamed route (K1, K2a/b/c counted), its first loss against the same
+    weights' in-process loss, then eval-reader --model-path <dir>;
+    examples/s and peak memory of Adafactor beside AdamW; NativeIndex and
+    HostIndex at LaKo's scale against the exact DenseIndex; the obj36
+    loaders. Returns the launches of train-reader."""
+    from lako_tpu_torch.core.config import OptimConfig, ReaderTrainConfig, t5_config_for_size
+    from lako_tpu_torch.models.hf_io import load_hf_t5
+    from lako_tpu_torch.models.t5 import init_fid_t5
+    from lako_tpu_torch.models.t5.layers import set_dropout_key
+    from lako_tpu_torch.text.tokenizer import HFTokenizer, _tokenizers, load_tokenizer
+    from lako_tpu_torch.text.tokenizer_json import PlainTokenizer
+    from lako_tpu_torch.train import reader as reader_mod
+
+    t_phase = time.perf_counter()
+    log("HF warm start: " + "; ".join(package_line(p) for p in PACKAGES))
+    device = [] if dev.type == "cuda" else ["--device", str(dev)]
+    # t5-large as HF configures it, but dropout 0: the encoder then takes the kernels
+    arch = t5_config_for_size("large", vocab_size=HF_VOCAB, dropout_rate=0.0)
+    route = arch.replace(use_flash_attention=True, flash_min_length=128)
+    _, train, evals = train_fixture()
+    train = train[:8 * HF_STEPS]
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        written = init_fid_t5(arch, torch.Generator(device=dev).manual_seed(SEED)).state_dict()
+        t0 = time.perf_counter()
+        n_bytes = write_hf_t5(tmp / "hf", arch, written)
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cfg, loaded = load_hf_t5(str(tmp / "hf"), device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        bad = [k for k, v in written.items() if not torch.equal(loaded[k], v)]
+        if sorted(loaded) != sorted(written) or bad or cfg != arch:
+            raise AssertionError(f"load_hf_t5: {len(bad)} tensors differ from those written "
+                                 f"(e.g. {bad[:3]}), or the config {cfg} is not {arch}")
+        log(f"  t5-large ({arch.num_layers}+{arch.num_decoder_layers} layers, d_model "
+            f"{arch.d_model}, d_ff {arch.d_ff}, {arch.num_heads} heads, vocab {arch.vocab_size}, "
+            f"relu, tied) as an HF directory: {n_bytes / 1e9:.3f} GB model.safetensors written "
+            f"in {write_s:.1f} s; load_hf_t5 onto the card {load_s:.2f} s "
+            f"({n_bytes / 1e9 / load_s:.2f} GB/s, the file just written, so in the page cache); "
+            f"{len(written)} tensors bitwise, the config field by field")
+        del loaded
+
+        for name, data in (("train", train), ("eval", evals)):
+            (tmp / f"{name}.json").write_text(json.dumps(data))
+        texts = [t for ex in train + evals
+                 for t in [ex["question"], ex["caption"], *(f["sentence"] for f in ex["fact"])]]
+        texts += ["Héllo wörld, café naïve", "东京 is big", "the cat's meow?!"]
+        if _tokenizers() is not None:
+            tok_out = cli(["build-tokenizer", "--from-json", str(tmp / "train.json"),
+                           str(tmp / "eval.json"), "--kind", "unigram", "--vocab-size", "400",
+                           "--out", str(tmp / "tok.json")])
+            how = f"build-tokenizer --kind unigram ({tok_out['vocab_size']} pieces)"
+        else:
+            write_unigram_layout(tmp / "tok.json", texts)
+            cli_raises(["build-tokenizer", "--from-json", str(tmp / "train.json"), "--kind",
+                        "unigram", "--out", str(tmp / "never.json")], ImportError, "`tokenizers`")
+            how = "in train_unigram's layout, written here (build-tokenizer raised naming " \
+                  "`tokenizers`)"
+        hf_tok = load_tokenizer(str(tmp / "tok.json"))
+        readers = {"plain": HFTokenizer(PlainTokenizer.from_file(str(tmp / "tok.json")))}
+        if _tokenizers() is not None:
+            readers["tokenizers"] = HFTokenizer(
+                _tokenizers().Tokenizer.from_file(str(tmp / "tok.json")))
+        for name, other in readers.items():
+            if any(other.encode(t) != hf_tok.encode(t) for t in texts):
+                raise AssertionError(f"tokenizer ids: load_tokenizer ({hf_tok.reader}) and "
+                                     f"the {name} reader differ")
+        log(f"  tokenizer.json {how}; load_tokenizer took {hf_tok.reader}; ids on "
+            f"{len(texts)} texts equal to {' and '.join(readers)}")
+
+        reader = ReaderTrainConfig(
+            model_size="large", per_device_batch_size=8, eval_batch_size=8, epochs=1,
+            early_stop=1, eval_max_length=20, use_remat=True, dtype="bfloat16",
+            param_dtype="float32", seed=SEED, checkpoint_dir=str(tmp / "ckpt"), name="hf",
+            optim=OptimConfig(optim="adafactor", lr=1e-3))
+        (tmp / "reader.json").write_text(json.dumps(dataclasses.asdict(reader)))
+        (tmp / "route.json").write_text(json.dumps(dataclasses.asdict(route)))
+        common = ["--config", str(tmp / "reader.json"), "--t5-config", str(tmp / "route.json"),
+                  "--tokenizer", str(tmp / "tok.json"), "--model-path", str(tmp / "hf"), *device]
+        first = []
+        make_step = reader_mod.make_reader_train_step
+
+        def recording(model, backend="flax"):
+            step = make_step(model, backend)
+
+            def run(state, ids, mask, labels, seed):
+                state, loss = step(state, ids, mask, labels, seed)
+                if not first:
+                    first.append((ids.clone(), mask.clone(), labels.clone(), float(loss)))
+                return state, loss
+
+            return run
+
+        reader_mod.make_reader_train_step = recording
+        reset_counts()
+        try:
+            t0 = time.perf_counter()
+            out = cli(["train-reader", *common, "--train-data", str(tmp / "train.json"),
+                       "--eval-data", str(tmp / "eval.json")])
+            train_s = time.perf_counter() - t0
+        finally:
+            reader_mod.make_reader_train_step = make_step
+        launches = read_counts()
+        eval_batches = -(-len(evals) // reader.eval_batch_size)
+        expected = {n: c * arch.num_layers * out["steps"]
+                    for n, c in STEP_LAUNCHES["streamed"].items()}
+        expected["streamed_attention"] += arch.num_layers * eval_batches
+        log(f"  train-reader --model-path <HF dir>, Adafactor lr {reader.optim.lr}, streamed "
+            f"kernels, B=8, N={reader.data.n_passages}, L={reader.data.text_maxlength}, bf16, "
+            f"f32 masters, remat: {out['steps']} steps and 1 evaluation in {train_s:.1f} s "
+            f"(its checkpoint saves included); history {json.dumps(out['history'])}")
+        check_counts("train-reader from the HF directory (STEP_LAUNCHES x steps, K1 in the "
+                     f"evaluation's {eval_batches} batch)", launches, expected)
+        if out["steps"] != HF_STEPS or not all(math.isfinite(h["loss"]) for h in out["history"]):
+            raise AssertionError(f"train-reader: {out}")
+
+        ids, mask, labels, cli_loss = first[0]
+        model = init_fid_t5(route, torch.Generator(device=dev).manual_seed(SEED),
+                            torch.bfloat16, use_remat=True)
+        model.load_state_dict(load_hf_t5(str(tmp / "hf"), device=dev)[1])
+        model.to(torch.float32).train()
+        set_dropout_key(model, SEED, 0)
+        own = float(model(ids, mask, labels)[0].detach())   # with grad, as a train step
+        del model
+        err = abs(cli_loss - own) / abs(own)
+        log(f"  the first step's loss {cli_loss:.7f}; the same weights and batch in this "
+            f"process {own:.7f} (rel err {err:.2e}, bound {HF_LOSS_RTOL:g})")
+        if not err <= HF_LOSS_RTOL:
+            raise AssertionError("the warm-started loss is not the HF weights' loss")
+
+        reset_counts()
+        t0 = time.perf_counter()
+        ev = cli(["eval-reader", *common, "--eval-data", str(tmp / "eval.json")])
+        eval_s = time.perf_counter() - t0
+        check_counts("eval-reader from the HF directory", read_counts(),
+                     {"streamed_attention": arch.num_layers * eval_batches})
+        if ev["total"] != len(evals) or not 0.0 <= ev["em"] <= 1.0:
+            raise AssertionError(f"eval-reader: {ev}")
+        log(f"  eval-reader --model-path <HF dir>: {json.dumps(ev)} in {eval_s:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        batch = (ids, mask, labels)
+        runs = [(name, hf_train_rate(dev, route, written, batch, name))
+                for name in ("adafactor", "adamw", "adamw", "adafactor")]
+        log(f"  warm-started train step (streamed kernels, bf16 compute, f32 masters, remat, "
+            f"B=8; {TIMED_STEPS} steps after the first): "
+            + "; ".join(f"{name} {rate:.2f} ex/s, peak {peak:.2f} GB, optimizer state "
+                        f"{opt:.4f} GB" for name, (rate, peak, opt) in runs))
+        del written, batch, ids, mask, labels
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_host_indexes(dev)
+        check_obj36(tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"HF warm-start phase: {time.perf_counter() - t_phase:.1f} s wall; {power_line()}")
+    return {"streamed": launches}
+
+
 
 # the main-path run each kernel's launch count comes from: (phase, route)
 LAUNCHES_FROM = {"streamed_attention": ("training", "streamed"),
@@ -2917,6 +3343,10 @@ def main() -> int:
     ptxas = start_ptxas(_build)
     _build.load_library()
     log(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _build.load_host_library()                   # g++; a failed build fails the run
+    log(f"host build: {_build.host_library_path().name} (csrc/host/*.cpp, g++ "
+        f"{' '.join(_build.HOST_CXXFLAGS)}) in {time.perf_counter() - t0:.1f} s")
     nvcc_dir = Path(_build.find_nvcc()).parent
     ptxas_report(ptxas, nvcc_dir)
     sass_report(_build, nvcc_dir)
@@ -2949,6 +3379,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     runs["loop"] = run_lako_loop(dev)            # K1 + K2a/K2b/K2c through full-loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["hf"] = run_hf_warm_start(dev)          # K1 + K2a/K2b/K2c from an HF directory
     gc.collect()
     torch.cuda.empty_cache()
     runs["profiled"] = run_profiled(dev)         # K3 in captured chunks, from a trace

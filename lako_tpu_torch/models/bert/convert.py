@@ -9,10 +9,12 @@ imported) onto this package's ``state_dict``: module paths are kept
 ``weight``. ``jax_param_paths`` maps the other way, for the optimizer's
 no-decay mask.
 
-``state_dict_from_hf_bert`` is the counterpart of
-lako_tpu/models/bert/convert.py's ``params_from_torch_bert``: it reads a
-local state_dict (no download, no ``transformers``). ``init_retriever``
-draws the flax init.
+``state_dict_from_hf_bert``, ``retriever_state_dict_from_hf_bert`` and
+``bert_config_from_hf`` are the counterparts of
+lako_tpu/models/bert/convert.py's ``params_from_torch_bert``,
+``retriever_params_from_torch_bert`` and ``bert_config_from_hf``: they read
+a local state_dict and config (no download, no ``transformers``).
+``init_retriever`` draws the flax init.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from torch import nn
 
 from lako_tpu_torch.core.config import BertConfig, RetrieverConfig
+from lako_tpu_torch.models.hf_io import float32_copy
 from lako_tpu_torch.models.bert.model import Embedding, LayerNorm, Linear
 
 _LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight"}
@@ -64,17 +67,12 @@ def jax_param_paths(model: nn.Module) -> Dict[str, str]:
     return paths
 
 
-def _t(x) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", torch.float32).clone()
-    return torch.from_numpy(np.array(x, dtype=np.float32))
-
-
 def state_dict_from_hf_bert(state_dict: Mapping, config: BertConfig,
                             prefix: str = "") -> Dict[str, torch.Tensor]:
     """An HF ``BertModel`` state_dict (optionally under ``prefix``, e.g.
-    ``"bert."``) → the port's ``BertEncoder`` state_dict. HF's Linear
-    weights are already ``(out, in)``."""
+    ``"bert."``) → the port's ``BertEncoder`` state_dict, float32 on the
+    host. HF's Linear weights are already ``(out, in)``."""
+    _t = float32_copy
     sd = {k[len(prefix):]: v for k, v in state_dict.items()} if prefix else dict(state_dict)
     out = {
         "embeddings.word_embeddings.weight": _t(sd["embeddings.word_embeddings.weight"]),
@@ -95,6 +93,55 @@ def state_dict_from_hf_bert(state_dict: Mapping, config: BertConfig,
             for leaf in ("weight", "bias"):
                 out[f"layer_{i}.{ours}.{leaf}"] = _t(sd[f"encoder.layer.{i}.{theirs}.{leaf}"])
     return out
+
+
+def retriever_state_dict_from_hf_bert(state_dict: Mapping, retriever_config: RetrieverConfig,
+                                     rng_seed: int = 0) -> Dict[str, torch.Tensor]:
+    """The port's ``Retriever`` state_dict from an HF ``BertModel``
+    state_dict: the BERT backbone converted, the projection head(s) drawn
+    fresh as the JAX converter draws them (numpy ``default_rng(rng_seed)``,
+    normal(0.02) kernels, zero biases, LayerNorm 1 and 0; the reference's
+    ``initialize_wBERT=True`` path)."""
+    cfg = retriever_config
+    rng = np.random.default_rng(rng_seed)
+    hidden, dim = cfg.bert.hidden_size, cfg.indexing_dimension
+    out = {f"bert.{k}": v for k, v in state_dict_from_hf_bert(state_dict, cfg.bert).items()}
+
+    def head(name: str) -> None:
+        kernel = rng.normal(scale=0.02, size=(hidden, dim)).astype(np.float32)
+        out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.T))
+        out[f"{name}.bias"] = torch.zeros(dim)
+
+    def norm(name: str) -> None:
+        out[f"{name}.weight"], out[f"{name}.bias"] = torch.ones(dim), torch.zeros(dim)
+
+    if cfg.projection:
+        head("proj")
+        norm("norm")
+    elif cfg.asymmetric:
+        head("proj_iq")
+        head("proj_fact")
+        norm("norm_iq")
+        norm("norm_fact")
+    return out
+
+
+def bert_config_from_hf(hf_config) -> BertConfig:
+    """A ``transformers.BertConfig`` (or any object with its fields) → ours."""
+    return BertConfig(
+        vocab_size=hf_config.vocab_size,
+        hidden_size=hf_config.hidden_size,
+        num_hidden_layers=hf_config.num_hidden_layers,
+        num_attention_heads=hf_config.num_attention_heads,
+        intermediate_size=hf_config.intermediate_size,
+        hidden_act=hf_config.hidden_act,
+        hidden_dropout_prob=hf_config.hidden_dropout_prob,
+        attention_probs_dropout_prob=hf_config.attention_probs_dropout_prob,
+        max_position_embeddings=hf_config.max_position_embeddings,
+        type_vocab_size=hf_config.type_vocab_size,
+        layer_norm_eps=hf_config.layer_norm_eps,
+        pad_token_id=hf_config.pad_token_id,
+    )
 
 
 @torch.no_grad()

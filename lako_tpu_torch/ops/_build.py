@@ -7,6 +7,16 @@ interface, which is loaded with ``ctypes``. The library lands in
 sources and flags, so an edited source rebuilds and an unchanged one is
 loaded as is. Nothing falls back: without ``nvcc`` a build raises with the
 commands it could not run.
+
+The host engines (``csrc/host/*.cpp``, byte-for-byte copies of the JAX
+package's ``native/`` sources: the MIPS scan, BM25 and the obj36 decoder)
+are built the same way by their own function, with ``g++`` and no
+``nvcc``: ``native/Makefile``'s flags, since others change FMA contraction
+and so the scores, into a library named by a hash of the sources, the flags
+and the compiler's reading of ``-march=native`` (a build for another CPU is
+not loaded). Each build compiles in a work directory of its own process and
+moves the result into place with ``os.replace``; nothing runs ``make`` in
+``native/`` or loads the library built there.
 """
 
 from __future__ import annotations
@@ -35,8 +45,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+HOST_DIR = CSRC_DIR / "host"
+# native/Makefile's CXXFLAGS and LDFLAGS
+HOST_CXXFLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-Wextra")
+HOST_LDFLAGS = ("-shared", "-pthread")
+
 _lock = threading.Lock()
 _library = []   # the loaded CDLL, once built
+_host_library = []
 # host buffers that captured CUDA graphs read at each replay, by the hold
 # (csrc/common.cu lako_graph_hold) that says when their graph is gone
 _graph_buffers: dict = {}
@@ -122,6 +138,93 @@ def load_library() -> ctypes.CDLL:
             lib.lako_cuda_error_string.restype = ctypes.c_char_p
             _library.append(lib)
         return _library[0]
+
+
+def find_cxx() -> str:
+    """``$CXX`` (as make reads it), else ``g++``."""
+    return os.environ.get("CXX", "g++")
+
+
+def _host_sources():
+    return sorted(HOST_DIR.glob("*.cpp"))
+
+
+def host_library_path() -> Path:
+    cxx = find_cxx()
+    h = hashlib.sha256(" ".join((cxx, *HOST_CXXFLAGS, *HOST_LDFLAGS)).encode())
+    for args in (["--version"], ["-march=native", "-Q", "--help=target"]):
+        try:
+            h.update(subprocess.run([cxx, *args], capture_output=True, timeout=120).stdout)
+        except OSError:
+            pass   # no compiler: the build raises with its command
+    for src in _host_sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"liblako_host-{h.hexdigest()[:16]}.so"
+
+
+def compile_host_library(out: Path) -> float:
+    """``g++`` the host sources into ``out`` (native/Makefile's command);
+    returns the seconds it took."""
+    work = out.with_name(f"{out.name}.{os.getpid()}.d")
+    tmp = work / out.name
+    cmd = [find_cxx(), *HOST_CXXFLAGS, *map(str, _host_sources()), "-o", str(tmp),
+           *HOST_LDFLAGS]
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"cannot run the host compiler ({e}): {' '.join(cmd)}") from None
+        if proc.returncode != 0:
+            raise RuntimeError(f"the host build failed with exit code {proc.returncode}: "
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    logger.info("built %s in %.1f s", out.name, seconds)
+    return seconds
+
+
+def _bind_host(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C signatures of csrc/host/mips.cpp and obj36.cpp."""
+    f32, i64 = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64)
+    ll, vp = ctypes.c_longlong, ctypes.c_void_p
+    for name, res, args in (
+            ("lako_mips_topk", ctypes.c_int,
+             [f32, ctypes.c_int64, ctypes.c_int64, f32, ctypes.c_int64, ctypes.c_int64, i64, f32,
+              ctypes.c_int]),
+            ("lako_mips_rerank", ctypes.c_int,
+             [f32, ctypes.c_int64, ctypes.c_int64, f32, ctypes.c_int64, i64, ctypes.c_int64, i64,
+              f32, ctypes.c_int]),
+            ("lako_bm25_topn", ll,
+             [i64, i64, ctypes.c_int64, i64, ctypes.c_int64, ctypes.c_double, ctypes.c_double,
+              ctypes.c_double, i64, ctypes.c_int64]),
+            ("lako_obj36_open", vp, [ctypes.c_char_p, ctypes.c_int, ll]),
+            ("lako_obj36_num_rows", ll, [vp]),
+            ("lako_obj36_error", ctypes.c_char_p, [vp]),
+            ("lako_obj36_img_id", ctypes.c_char_p, [vp, ll]),
+            ("lako_obj36_meta", ctypes.c_int, [vp, ll] + [ctypes.POINTER(ll)] * 4),
+            ("lako_obj36_field", vp, [vp, ll, ctypes.c_int]),
+            ("lako_obj36_field_size", ll, [vp, ll, ctypes.c_int]),
+            ("lako_obj36_close", None, [vp])):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    return lib
+
+
+def load_host_library() -> ctypes.CDLL:
+    """The host engines' shared library, built with ``g++`` first if missing;
+    loaded once per process. Raises with the command it could not run."""
+    with _lock:
+        if not _host_library:
+            path = host_library_path()
+            if not path.exists():
+                compile_host_library(path)
+            _host_library.append(_bind_host(ctypes.CDLL(str(path))))
+        return _host_library[0]
 
 
 def signature(n_pointers: int, n_ints: int, n_uints: int = 0, n_floats: int = 0):

@@ -27,8 +27,8 @@ from lako_tpu_torch.core.logging import init_logger
 
 # the JAX CLI's options the port refuses, by the ROADMAP item that ports each
 _NOT_PORTED = """\
-not ported yet (ROADMAP item): build-tokenizer --kind unigram|wordpiece (9);
-retrieve --sharded-index (12); serve --mesh-model > 1 (11)"""
+not ported yet (ROADMAP item): retrieve --sharded-index (12); serve
+--mesh-model > 1 (11)"""
 
 
 def _load_cfg(cls, path):
@@ -50,11 +50,8 @@ def _t5_cfg(args):
 
 
 def cmd_build_tokenizer(args):
-    from lako_tpu_torch.text.tokenizer import WordVocabTokenizer
+    from lako_tpu_torch.text.tokenizer import HFTokenizer, WordVocabTokenizer
 
-    if args.kind != "word":
-        raise SystemExit(f"--kind {args.kind}: HF tokenizers are not ported yet "
-                         "(ROADMAP item 9)")
     corpus = []
     for p in args.from_json or []:
         data = json.loads(Path(p).read_text())
@@ -71,7 +68,12 @@ def cmd_build_tokenizer(args):
     corpus = [c for c in corpus if c]
     # prefixes must be in-vocab
     corpus += ["question: context: fact:"] * 5
-    tok = WordVocabTokenizer.build(corpus, style=args.style, max_vocab=args.vocab_size)
+    if args.kind == "word":
+        tok = WordVocabTokenizer.build(corpus, style=args.style, max_vocab=args.vocab_size)
+    elif args.kind == "unigram":
+        tok = HFTokenizer.train_unigram(corpus, vocab_size=args.vocab_size)
+    else:
+        tok = HFTokenizer.train_wordpiece(corpus, vocab_size=args.vocab_size)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     tok.save(args.out)
     print(json.dumps({"vocab_size": tok.vocab_size, "out": args.out}))
@@ -215,7 +217,7 @@ def cmd_serve(args):
     cfg = _load_cfg(ReaderTrainConfig, args.config)
     tok = _tokenizer(args.tokenizer)
     t5_cfg = _t5_cfg(args) or t5_config_for_size(cfg.model_size, vocab_size=tok.vocab_size)
-    _refuse_unported(args.model_path)
+    _refuse_unported()
     with torch.device("meta"):         # shapes only: the service builds the model
         template = FiDT5(t5_cfg).state_dict()
     params = load_checkpoint(args.model_path, template)[0]
@@ -227,7 +229,6 @@ def cmd_serve(args):
         from lako_tpu_torch.retrieval.index import DenseIndex
 
         rt_cfg = _load_cfg(RetrieverTrainConfig, args.retriever_config).retriever
-        _refuse_unported(args.retriever_path)
         with torch.device("meta"):
             retriever = Retriever(rt_cfg)
         retriever_params = load_checkpoint(args.retriever_path, retriever.state_dict())[0]
@@ -312,7 +313,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--out", required=True)
     t.add_argument("--style", default="t5", choices=["t5", "bert"])
     t.add_argument("--kind", default="word", choices=["word", "unigram", "wordpiece"],
-                   help="word; unigram and wordpiece are not ported yet (ROADMAP item 9)")
+                   help="word; unigram (T5) and wordpiece (BERT) train an HF "
+                        "tokenizer.json and need the `tokenizers` package")
     t.add_argument("--vocab-size", type=int, default=32000)
     t.set_defaults(fn=cmd_build_tokenizer)
 
@@ -322,7 +324,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--train-data", required=True)
     t.add_argument("--eval-data", required=True)
     t.add_argument("--tokenizer", required=True)
-    t.add_argument("--model-path", help="warm-start checkpoint dir")
+    t.add_argument("--model-path", help="warm-start checkpoint dir, or an HF "
+                                         "save_pretrained dir")
     t.add_argument("--maxload", type=int, default=-1,
                    help="small-data mode: cap loaded examples")
     t.add_argument("--device", help="torch device, e.g. cpu (default: the CUDA card)")

@@ -10,9 +10,10 @@ corpus row:     {sentence, id}
 ``train_retriever_stage`` (distills from those scores) →
 ``embed_facts_stage`` (a DenseIndex directory) → ``retrieve_stage`` /
 ``rerank_stage`` → ``eval_facts_stage``. Every stage runs on the CUDA card
-unless given a device. Warm starts from an HF ``save_pretrained`` directory
-wait for ROADMAP item 9, and runs of more than one process or a corpus
-sharded over devices for item 12.
+unless given a device. The reader stages also take an HF
+``save_pretrained`` directory (models/hf_io.py) for their weights, with
+its architecture; runs of more than one process or a corpus sharded over
+devices wait for ROADMAP item 12.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from lako_tpu_torch.core.distributed import process_count
 from lako_tpu_torch.core.logging import get_logger
 from lako_tpu_torch.data import ReaderCollator, ReaderDataset, RetrieverCollator, batch_iterator
 from lako_tpu_torch.models.bert import init_retriever
+from lako_tpu_torch.models.hf_io import hf_t5_and_state, is_hf_checkpoint_dir
 from lako_tpu_torch.models.retriever import Retriever
 from lako_tpu_torch.models.t5 import FiDT5, init_fid_t5
 from lako_tpu_torch.models.t5.decode import make_best_generate_fn, make_generate_and_score_fn
@@ -59,11 +61,6 @@ from lako_tpu_torch.train.retriever import (
 
 Device = Optional[Union[str, torch.device]]
 
-# the files that make a directory an HF save_pretrained checkpoint
-_HF_WEIGHTS = ("model.safetensors", "model.safetensors.index.json", "pytorch_model.bin",
-               "pytorch_model.bin.index.json")
-
-
 def _load_json(path: str):
     return json.loads(Path(path).read_text())
 
@@ -73,21 +70,10 @@ def _save_json(obj, path: str):
     Path(path).write_text(json.dumps(obj))
 
 
-def is_hf_checkpoint_dir(path: str) -> bool:
-    """A copy of lako_tpu/models/hf_io.py's test for an HF checkpoint."""
-    p = Path(path)
-    if not (p / "config.json").exists():
-        return False
-    return any((p / f).exists() for f in _HF_WEIGHTS)
-
-
-def _refuse_unported(model_path: Optional[str]) -> None:
+def _refuse_unported() -> None:
     if process_count() > 1:
         raise NotImplementedError("the stages run in one process; more than one "
                                   "is not ported yet (ROADMAP item 12)")
-    if model_path and is_hf_checkpoint_dir(model_path):
-        raise NotImplementedError(f"{model_path} is an HF checkpoint directory; loading one "
-                                  "is not ported yet (ROADMAP item 9)")
 
 
 def _init_reader(t5_cfg: T5Config, device: torch.device,
@@ -107,8 +93,11 @@ def train_reader_stage(
     device: Device = None,
 ) -> Dict[str, Any]:
     """Train the reader on ``device`` (the card unless given), warm-started
-    from the port's checkpoint at ``init_params_path`` if given."""
-    _refuse_unported(init_params_path)
+    from ``init_params_path`` if given: the port's checkpoint, or an HF
+    save_pretrained directory, whose config.json then gives the architecture
+    (``t5_config`` only its kernel route: models/hf_io.py
+    ``hf_t5_and_state``)."""
+    _refuse_unported()
     device = resolve_device(device)
     train_examples = _load_json(train_data)
     eval_examples = _load_json(eval_data)
@@ -117,7 +106,10 @@ def train_reader_stage(
         eval_examples = eval_examples[:maxload]
     t5_cfg = t5_config or t5_config_for_size(cfg.model_size, vocab_size=tokenizer.vocab_size)
     init_params = None
-    if init_params_path:
+    if init_params_path and is_hf_checkpoint_dir(init_params_path):
+        # the reference's load_t5 path (src/model.py:79-82, train_reader.py:243-250)
+        t5_cfg, init_params = hf_t5_and_state(init_params_path, t5_config)
+    elif init_params_path:
         template = _init_reader(t5_cfg, device).state_dict()
         init_params = load_checkpoint(init_params_path, template)[0]
         del template
@@ -141,16 +133,24 @@ def eval_reader_stage(
 ) -> Dict[str, Any]:
     """Evaluate EM / include-EM / stem-EM on ``device`` (the card unless
     given) and optionally write the per-example results and the scored
-    dataset for retriever distillation. ``num_beams > 1`` decodes with beam
-    search; score writing needs greedy decode."""
-    _refuse_unported(model_path)
+    dataset for retriever distillation. ``model_path`` is the port's
+    checkpoint or an HF save_pretrained directory, as in
+    :func:`train_reader_stage`. ``num_beams > 1`` decodes with beam search;
+    score writing needs greedy decode."""
+    _refuse_unported()
     device = resolve_device(device)
     logger = get_logger()
     examples = _load_json(eval_data)
     t5_cfg = t5_config or t5_config_for_size(cfg.model_size, vocab_size=tokenizer.vocab_size)
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    model = _init_reader(t5_cfg, device, dtype)
-    model.load_state_dict(load_checkpoint(model_path, model.state_dict())[0])
+    if is_hf_checkpoint_dir(model_path):
+        t5_cfg, params = hf_t5_and_state(model_path, t5_config)
+        model = _init_reader(t5_cfg, device, dtype)
+    else:
+        model = _init_reader(t5_cfg, device, dtype)
+        params = load_checkpoint(model_path, model.state_dict())[0]
+    model.load_state_dict(params)
+    del params
 
     collect = write_crossattention_scores is not None
     knobs = dict(max_length=cfg.eval_max_length, backend=cfg.decode_backend,
@@ -243,7 +243,7 @@ def train_retriever_stage(
 ) -> Dict[str, Any]:
     """Distill the retriever from the scored data on ``device`` (the card
     unless given)."""
-    _refuse_unported(None)
+    _refuse_unported()
     result = train_retriever(cfg, _load_json(train_data), _load_json(eval_data), tokenizer,
                              device=resolve_device(device))
     return {"best_inversions": result.best_inversions, "steps": result.final_step,
@@ -275,7 +275,7 @@ def _load_retriever(cfg: RetrieverConfig, model_path: str, dtype: torch.dtype = 
                     device: Device = None) -> Retriever:
     """The Retriever of the port's checkpoint at ``model_path`` (its
     ``params.pt``) on ``device``, in eval mode."""
-    _refuse_unported(model_path)
+    _refuse_unported()
     device = resolve_device(device)
     model = init_retriever(cfg, torch.Generator(device=device).manual_seed(0), dtype)
     model.load_state_dict(load_checkpoint(model_path, model.state_dict())[0])

@@ -1,14 +1,18 @@
 """BM25 candidate mining over the verbalized KG: the port of
 lako_tpu/retrieval/candidates.py, pinned to the original's Python path by
-tests/test_torch_dataprep.py.
+tests/test_torch_dataprep.py and to its C++ path by
+tests/test_torch_native.py.
 
 Per question: a stemmed, stop-word-filtered word set from question +
 caption (+ OCR text); every triple whose subject or object shares a stemmed
 word is a candidate (an inverted stem → fact-id index, built once); the
-candidates are ranked by BM25 and the top ``k`` kept. The JAX package ranks
-with its C++ BM25 when that library builds, whose ties fall in a stable
-reversed order; this module has only the Python BM25, whose ties fall in
-``np.argsort(scores)[::-1]`` order.
+candidates are ranked by BM25 and the top ``k`` kept. As in the JAX
+package, the ranking takes the C++ BM25 (retrieval/native.py) when the host
+library builds and loads, and the Python BM25 otherwise: the rule decides
+which facts are mined, since the C++ ties fall in descending index order
+and the Python ones in ``np.argsort(scores)[::-1]`` order. Unlike the JAX
+package, the path taken is logged, and a failure of the C++ path after its
+library loaded raises.
 """
 
 from __future__ import annotations
@@ -16,9 +20,25 @@ from __future__ import annotations
 from collections import defaultdict
 from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Set, Tuple
 
+from lako_tpu_torch.core.logging import get_logger
+from lako_tpu_torch.retrieval import native
 from lako_tpu_torch.retrieval.bm25 import BM25Okapi
 from lako_tpu_torch.text.normalize import STOP_WORDS
 from lako_tpu_torch.text.stem import porter_stem
+
+
+_logged_paths: Set[str] = set()
+
+
+def bm25_backend() -> str:
+    """"C++" when the host library loads, else "Python": the BM25 the
+    miner ranks with (logged the first time each is taken)."""
+    path = "C++" if native.native_available() else "Python"
+    if path not in _logged_paths:
+        _logged_paths.add(path)
+        get_logger().info("candidate mining ranks with the %s BM25%s", path,
+                          "" if path == "C++" else " (the host library does not build)")
+    return path
 
 
 def _question_word_set(question: str, caption_sentence: str) -> Set[str]:
@@ -89,8 +109,22 @@ class CandidateMiner:
         query = query_sentence.split(" ")
 
         n = min(k, len(docs))
-        top = BM25Okapi(doc_tokens).get_top_n(query, docs, n=n)
+        top = self._bm25_top_n(doc_tokens, query, docs, n)
         return [{"sentence": d + ".", "id": fact[d]} for d in top]
+
+    @staticmethod
+    def _bm25_top_n(doc_tokens, query, docs, n):
+        """The C++ BM25 when the host library loads, Python otherwise."""
+        if bm25_backend() == "Python":
+            return BM25Okapi(doc_tokens).get_top_n(query, docs, n=n)
+        vocab: Dict[str, int] = {}
+
+        def ids(words):
+            return [vocab.setdefault(w, len(vocab)) for w in words]
+
+        doc_ids = [ids(d) for d in doc_tokens]
+        q_ids = [vocab[w] for w in query if w in vocab]
+        return [docs[i] for i in native.bm25_topn_native(doc_ids, q_ids, n)]
 
     def mine_dataset(
         self,

@@ -23,10 +23,11 @@ from lako_tpu_torch.data.collator import TextCollator
 from lako_tpu_torch.models.retriever import Retriever
 
 
-def make_embed_fn(model: Retriever, text_type: str = "f") -> Callable:
+def make_embed_fn(model: Retriever, text_type: str = "f", to_host: bool = True) -> Callable:
     """``(ids, mask) numpy -> (B, D) float32 numpy`` through
     ``model.embed_text`` with the config's mask policy for ``text_type``,
-    in eval mode, on the model's device."""
+    in eval mode, on the model's device (``to_host=False``: a float32
+    tensor left on that device)."""
     cfg = model.config
     apply_mask = cfg.apply_passage_mask if text_type == "f" else cfg.apply_question_mask
     device = next(model.parameters()).device
@@ -41,7 +42,7 @@ def make_embed_fn(model: Retriever, text_type: str = "f") -> Callable:
         emb = model.embed_text(torch.from_numpy(ids).to(device),
                                torch.from_numpy(mask).to(device), text_type,
                                apply_mask=apply_mask, extract_cls=cfg.extract_cls)
-        return emb.float().cpu().numpy()
+        return emb.float().cpu().numpy() if to_host else emb.float()
 
     return embed
 

@@ -130,6 +130,14 @@ class RunningTopK:
         return decode_keys(self.best)
 
 
+def as_queries(queries, device: torch.device) -> torch.Tensor:
+    """(Q, d) queries, a numpy array or a tensor on any device, as float32 on
+    ``device``."""
+    if isinstance(queries, torch.Tensor):
+        return queries.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(queries, np.float32)).to(device)
+
+
 def _validate_k(k: int, n: int) -> None:
     if k > n:
         raise ValueError(
@@ -186,8 +194,8 @@ class DenseIndex:
             raise KeyError(f"candidate id {e} not present in index ids") from None
         return rows.reshape(np.asarray(candidate_ids).shape)
 
-    def _queries(self, queries: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(queries, np.float32)).to(self.device)
+    def _queries(self, queries) -> torch.Tensor:
+        return as_queries(queries, self.device)
 
     def _search_batch(self, q: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         # fast/approx: bf16 operands, f32 sums on the card; f32 on the CPU

@@ -25,7 +25,13 @@ import numpy as np
 import torch
 
 from lako_tpu_torch.core.device import resolve_device
-from lako_tpu_torch.retrieval.index import Device, RunningTopK, _validate_k, matmul_precision
+from lako_tpu_torch.retrieval.index import (
+    Device,
+    RunningTopK,
+    _validate_k,
+    as_queries,
+    matmul_precision,
+)
 
 
 def _kmeans(x: np.ndarray, k: int, iters: int, seed: int) -> np.ndarray:
@@ -118,7 +124,7 @@ class PQIndex:
         _validate_k(k, self.n)
         out_ids, out_scores = [], []
         for s in range(0, len(queries), batch_size):
-            q = torch.as_tensor(np.asarray(queries[s:s + batch_size], np.float32)).to(self.device)
+            q = as_queries(queries[s:s + batch_size], self.device)
             top = RunningTopK(k)
             with matmul_precision("ieee"):
                 for start in range(0, self.n, self.chunk_size):

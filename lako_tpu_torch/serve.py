@@ -32,6 +32,7 @@ from lako_tpu_torch.models.t5.engine import DecodeEngine
 from lako_tpu_torch.models.retriever import Retriever
 from lako_tpu_torch.models.t5.model import FiDT5
 from lako_tpu_torch.retrieval.embed import make_embed_fn
+from lako_tpu_torch.retrieval.native import HostIndex, NativeIndex
 
 
 @dataclass
@@ -76,8 +77,9 @@ class LakoService:
     ``Retriever``, on any device, the meta device included) gives the
     retriever's config and dtype and ``retriever_params`` its weights
     (default: the module's own); ``index`` is a ``DenseIndex`` or
-    ``PQIndex`` over the fact embeddings and ``id_to_sentence`` maps its ids
-    to fact sentences. Without a retriever or an index, requests without
+    ``PQIndex`` over the fact embeddings, or a ``NativeIndex`` or
+    ``HostIndex`` over them on the host (retrieval/native.py), and
+    ``id_to_sentence`` maps its ids to fact sentences. Without a retriever or an index, requests without
     facts are answered without facts.
 
     ``engine_policy="auto"`` runs two greedy programs on one engine, the
@@ -94,7 +96,7 @@ class LakoService:
                  retriever: Optional[Retriever] = None,
                  retriever_params: Optional[Mapping[str, torch.Tensor]] = None,
                  bert_tokenizer=None,
-                 index=None,                      # DenseIndex / PQIndex
+                 index=None,              # DenseIndex / PQIndex / NativeIndex / HostIndex
                  id_to_sentence: Optional[Dict[int, str]] = None,
                  device: Optional[torch.device] = None):
         if cfg.engine_policy not in ("fixed", "auto"):
@@ -174,7 +176,7 @@ class LakoService:
             self.retriever.load_state_dict(retriever.state_dict() if retriever_params is None
                                            else retriever_params)
             self.retriever.eval().requires_grad_(False)
-            self._embed_q = make_embed_fn(self.retriever, "q")
+            self._embed_q = make_embed_fn(self.retriever, "q", to_host=False)
         self.bert_tokenizer = bert_tokenizer
         self.index = index
         self.id_to_sentence = id_to_sentence or {}
@@ -189,6 +191,8 @@ class LakoService:
         texts = [q["question"] + " " + q.get("caption", "") for q in questions]
         emb = self._embed_q(*self.bert_tokenizer.batch_encode(
             texts, self.retriever.config.question_maxlength))
+        if isinstance(self.index, (NativeIndex, HostIndex)):   # they search numpy on the host
+            emb = emb.cpu().numpy()
         k = min(self.cfg.n_context, getattr(self.index, "n", self.cfg.n_context))
         top_ids, scores = self.index.search(emb, k=k)
         return [[{"sentence": self.id_to_sentence.get(int(i), ""), "id": int(i),

@@ -25,14 +25,24 @@ What is kept from optax and HF on purpose:
   optax casts them, so bf16 parameters keep bf16 moments and updates.
 
 ``optim="adamw8bit"`` swaps Adam for train/optim8.py's 8-bit moments (the
-update kernel K5 on the card) in the same chain. Adafactor is not ported yet
-and raises.
+update kernel K5 on the card) in the same chain. ``optim="adafactor"`` is
+the JAX package's ``optax.adafactor`` chain (:func:`adafactor`), without
+weight decay, as the JAX package builds it::
+
+    clip by global norm -> factored RMS -> clip by block RMS -> lr(count)
+        -> x parameter RMS -> -1                     [all inside MultiSteps]
+
+Its factored statistics are decided on the JAX leaf's shape: a dense
+``kernel`` is ``(in, out)`` there and ``(out, in)`` here, so each kernel is
+read transposed and its ``v_row`` / ``v_col`` are the JAX leaf's, square
+matrices included.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from lako_tpu_torch.core.config import OptimConfig
@@ -154,11 +164,13 @@ def _layerwise_scale(decay: float, layer_key_prefix: str = "layer_") -> Gradient
     return GradientTransformation(lambda params: (), update)
 
 
-def scale_by_learning_rate(lr: Schedule) -> GradientTransformation:
-    """Multiply by ``-lr(count)`` (or ``-lr``); the count starts at 0."""
+def scale_by_learning_rate(lr: Schedule, flip_sign: bool = True) -> GradientTransformation:
+    """Multiply by ``-lr(count)`` (or ``-lr``; ``+`` without ``flip_sign``);
+    the count starts at 0."""
 
     def update(updates: Tree, count: int, params=None):
-        step = -(lr(count) if callable(lr) else lr)
+        step = lr(count) if callable(lr) else lr
+        step = -step if flip_sign else step
         return {k: u * _scalar(step, u.dtype) for k, u in updates.items()}, count + 1
 
     return GradientTransformation(lambda params: 0, update)
@@ -186,6 +198,141 @@ def _hf_decoupled_decay(weight_decay: float, lr_schedule: Schedule,
         return out, count + 1
 
     return GradientTransformation(lambda params: 0, update)
+
+
+class FactoredState(NamedTuple):
+    """optax's ``FactoredState``: per leaf, ``v_row`` and ``v_col`` for a
+    factored leaf (``v`` a (1,) placeholder) or ``v`` (the others ``(1,)``),
+    each in the JAX leaf's orientation."""
+    count: int
+    v_row: Tree
+    v_col: Tree
+    v: Tree
+
+
+def _is_kernel(path: str, t: torch.Tensor) -> bool:
+    """A dense ``kernel``: ``(in, out)`` in the JAX tree, ``(out, in)`` here."""
+    return t.dim() == 2 and path.rsplit("/", 1)[-1] == "kernel"
+
+
+def _jax_view(path: str, t: torch.Tensor) -> torch.Tensor:
+    """``t`` in its JAX leaf's orientation (a view; its own inverse)."""
+    return t.t() if _is_kernel(path, t) else t
+
+
+def _factored_dims(shape, min_dim_size_to_factor: int) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: the two largest axes (by ``np.argsort``),
+    when the smaller of them has ``min_dim_size_to_factor``."""
+    if len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+# optax.adafactor's defaults, the JAX package's values
+_DECAY_RATE, _MIN_DIM_SIZE_TO_FACTOR, _EPSILON = 0.8, 128, 1e-30
+_CLIPPING_THRESHOLD, _MIN_PARAM_SCALE = 1.0, 1e-3
+
+
+def scale_by_factored_rms() -> GradientTransformation:
+    """optax's ``scale_by_factored_rms`` (factored=True, no step offset):
+    the second moment of a leaf whose two largest axes have 128 elements is
+    kept as its row and column means, the rest whole; decay
+    ``1 - (t+1)^-0.8``.
+    The arithmetic follows optax's dtypes: the decays are float32 scalars, so
+    the new statistics are formed in float32 and cast to the leaf's dtype."""
+
+    def init(params: Tree) -> FactoredState:
+        v_row, v_col, v = {}, {}, {}
+        for k, p in params.items():
+            shape = tuple(_jax_view(k, p).shape)
+            one = torch.zeros(1, dtype=p.dtype, device=p.device)
+            dims = _factored_dims(shape, _MIN_DIM_SIZE_TO_FACTOR)
+            if dims is None:
+                v_row[k], v_col[k], v[k] = one, one.clone(), torch.zeros(
+                    shape, dtype=p.dtype, device=p.device)
+                continue
+            d1, d0 = dims
+            v_row[k] = torch.zeros(tuple(np.delete(shape, d0)), dtype=p.dtype, device=p.device)
+            v_col[k] = torch.zeros(tuple(np.delete(shape, d1)), dtype=p.dtype, device=p.device)
+            v[k] = one
+        return FactoredState(0, v_row, v_col, v)
+
+    def update(updates: Tree, state: FactoredState, params: Optional[Tree] = None):
+        if params is None:
+            raise ValueError("params required for scale_by_factored_rms")
+        t = torch.tensor(state.count + 1, dtype=torch.float32)
+        decay = 1.0 - t ** (-_DECAY_RATE)
+        keep = 1.0 - decay
+        out, v_row, v_col, v = {}, {}, {}, {}
+        for k, u in updates.items():
+            g = _jax_view(k, u)
+            dtype = params[k].dtype
+            g_sq = g * g + _EPSILON
+            dims = _factored_dims(tuple(g.shape), _MIN_DIM_SIZE_TO_FACTOR)
+            if dims is None:
+                new_v = (decay * state.v[k].float() + keep * g_sq.float()).to(dtype)
+                upd = g * new_v ** -0.5
+                v_row[k], v_col[k], v[k] = state.v_row[k], state.v_col[k], new_v
+            else:
+                d1, d0 = dims
+                new_row = (decay * state.v_row[k].float()
+                           + keep * g_sq.mean(dim=d0).float()).to(dtype)
+                new_col = (decay * state.v_col[k].float()
+                           + keep * g_sq.mean(dim=d1).float()).to(dtype)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (new_row / new_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+                col_factor = new_col ** -0.5
+                upd = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+                v_row[k], v_col[k], v[k] = new_row, new_col, state.v[k]
+            out[k] = _jax_view(k, upd)
+        return out, FactoredState(state.count + 1, v_row, v_col, v)
+
+    return GradientTransformation(init, update)
+
+
+def clip_by_block_rms(threshold: float) -> GradientTransformation:
+    """optax's ``clip_by_block_rms``: each leaf over ``max(1, rms / threshold)``."""
+
+    def update(updates: Tree, state, params=None):
+        return {k: u / torch.clamp(torch.sqrt(torch.mean(u * u)) / threshold, min=1.0)
+                for k, u in updates.items()}, state
+
+    return GradientTransformation(lambda params: (), update)
+
+
+def scale_by_param_block_rms(min_scale: float = 1e-3) -> GradientTransformation:
+    """optax's ``scale_by_param_block_rms``: each leaf times its parameter's
+    RMS, at least ``min_scale``."""
+
+    def update(updates: Tree, state, params: Optional[Tree] = None):
+        if params is None:
+            raise ValueError("params required for scale_by_param_block_rms")
+        out = {}
+        for k, u in updates.items():
+            rms = torch.sqrt(torch.mean(params[k] * params[k]))
+            out[k] = u * torch.where(rms <= min_scale, torch.full_like(rms, min_scale), rms)
+        return out, state
+
+    return GradientTransformation(lambda params: (), update)
+
+
+def scale(factor: float) -> GradientTransformation:
+    def update(updates: Tree, state, params=None):
+        return {k: u * factor for k, u in updates.items()}, state
+
+    return GradientTransformation(lambda params: (), update)
+
+
+def adafactor(lr: Schedule) -> GradientTransformation:
+    """``optax.adafactor(learning_rate=lr, multiply_by_parameter_scale=True,
+    clipping_threshold=1.0)`` with its other defaults (no momentum, no
+    weight decay)."""
+    return chain(scale_by_factored_rms(), clip_by_block_rms(_CLIPPING_THRESHOLD),
+                 scale_by_learning_rate(lr, flip_sign=False),
+                 scale_by_param_block_rms(_MIN_PARAM_SCALE), scale(-1.0))
 
 
 def chain(*txs: GradientTransformation) -> GradientTransformation:
@@ -241,8 +388,8 @@ def apply_updates(params: Tree, updates: Tree) -> Tree:
 
 
 def make_optimizer(cfg: OptimConfig) -> GradientTransformation:
-    """The JAX package's ``make_optimizer`` chain for ``adam``, ``adamw`` and
-    ``adamw8bit``."""
+    """The JAX package's ``make_optimizer`` chain for ``adam``, ``adamw``,
+    ``adamw8bit`` and ``adafactor``."""
     scheduler_steps = cfg.scheduler_steps or cfg.total_steps
     if cfg.scheduler == "linear":
         lr: Schedule = warmup_linear_schedule(cfg.lr, cfg.warmup_steps, scheduler_steps,
@@ -250,7 +397,11 @@ def make_optimizer(cfg: OptimConfig) -> GradientTransformation:
     else:
         lr = cfg.lr
     if cfg.optim == "adafactor":
-        raise NotImplementedError("optim='adafactor' is not ported yet (ROADMAP item 13)")
+        # cfg.weight_decay is not applied: optax applies adafactor's decay
+        # rate after the learning rate (rate x p a step), so AdamW's 0.1
+        # would shrink every parameter by 10% a step (the JAX package's note)
+        tx = chain(clip_by_global_norm(cfg.clip), adafactor(lr))
+        return multi_steps(tx, cfg.accumulation_steps) if cfg.accumulation_steps > 1 else tx
     steps = [clip_by_global_norm(cfg.clip)]
     if cfg.optim == "adam":
         # torch.optim.Adam bias-corrects

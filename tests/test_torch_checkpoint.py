@@ -59,7 +59,8 @@ def _assert_same(a, b):
             assert type(v) is type(fb[k]) and v == fb[k], k
 
 
-@pytest.mark.parametrize("optim_name,accum", [("adamw", 1), ("adamw8bit", 1), ("adamw", 2)])
+@pytest.mark.parametrize("optim_name,accum", [("adamw", 1), ("adamw8bit", 1), ("adamw", 2),
+                                             ("adafactor", 1)])
 def test_optimizer_state_round_trip(tmp_path, optim_name, accum):
     """Save after two updates, load into a fresh template: every tensor and
     count bitwise, the same structure (NamedTuples, FlatMoments with their

@@ -5,10 +5,10 @@ The copies of ``retrieval/verbalize.py``, ``retrieval/bm25.py``,
 ``text/dictionary.py`` pinned to their originals on seeded inputs, and the
 ``mine-candidates``, ``prep-answers``, ``truncate-data`` and
 ``prep-questions`` subcommands through both CLIs, their files equal (JSON
-equal, ``.npy`` bitwise, the pickled tuple equal). The JAX miner ranks with
-its C++ BM25 when that library loads; the port has only the Python BM25,
-so the tests hold it to the JAX miner's Python path
-(``native_available`` patched to False inside the test).
+equal, ``.npy`` bitwise, the pickled tuple equal). Both miners rank with
+their C++ BM25 when its library loads; here both are held to their Python
+paths (``native_available`` patched to False on each side inside the test),
+and tests/test_torch_native.py holds the two C++ paths to each other.
 """
 
 import contextlib
@@ -31,6 +31,7 @@ from lako_tpu.text import vqa_answers as jax_vqa
 from lako_tpu_torch.data import prompt
 from lako_tpu_torch.pipeline.cli import main as port_cli
 from lako_tpu_torch.retrieval import bm25, candidates, verbalize
+from lako_tpu_torch.retrieval import native as port_native
 from lako_tpu_torch.text import dictionary, vqa_answers
 from tests.fixtures import ANIMALS, SOUNDS
 
@@ -60,8 +61,9 @@ def _restore_loggers():
 
 @pytest.fixture(autouse=True)
 def _python_bm25(monkeypatch):
-    """The JAX miner's Python BM25 path, the one the port copies."""
+    """Each miner's Python BM25 path."""
     monkeypatch.setattr(jax_native, "native_available", lambda: False)
+    monkeypatch.setattr(port_native, "native_available", lambda: False)
 
 
 def _triples(n, seed=0):

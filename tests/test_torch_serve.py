@@ -324,7 +324,8 @@ def test_copied_collator_matches(data):
 
 def test_port_imports_no_jax():
     """Every module of the package imports without jax, flax, msgpack,
-    regex, nltk, transformers or lako_tpu."""
+    regex, nltk, transformers, optax, safetensors, tokenizers or lako_tpu
+    (HFTokenizer imports tokenizers only when it reads or trains)."""
     code = ("import importlib, pkgutil, sys, lako_tpu_torch; "
             "names = [m.name for m in pkgutil.walk_packages(lako_tpu_torch.__path__, "
             "'lako_tpu_torch.')]; "
@@ -344,10 +345,14 @@ def test_port_imports_no_jax():
             "'lako_tpu_torch.retrieval.verbalize', 'lako_tpu_torch.retrieval.bm25', "
             "'lako_tpu_torch.retrieval.candidates', 'lako_tpu_torch.text.vqa_answers', "
             "'lako_tpu_torch.data.prompt', 'lako_tpu_torch.text.dictionary', "
-            "'lako_tpu_torch.pipeline.full_loop'} <= set(names), "
+            "'lako_tpu_torch.pipeline.full_loop', 'lako_tpu_torch.models.hf_io', "
+            "'lako_tpu_torch.text.tokenizer_json', 'lako_tpu_torch.text.simple_tokenizer', "
+            "'lako_tpu_torch.retrieval.native', 'lako_tpu_torch.data.vision', "
+            "'lako_tpu_torch.data.vision_native'} <= set(names), "
             "names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'msgpack', 'lako_tpu', 'regex', 'nltk', 'transformers')]; "
+            "('jax', 'flax', 'msgpack', 'lako_tpu', 'regex', 'nltk', 'transformers', "
+            "'optax', 'safetensors', 'tokenizers')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

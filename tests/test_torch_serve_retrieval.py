@@ -183,6 +183,24 @@ def test_mixed_batch_matches_jax(world):
             _same_facts([g["facts"]], [w["facts"]])
 
 
+@pytest.mark.parametrize("kind", ["native", "host"])
+def test_host_indexes_behind_the_service_match_jax(world, kind):
+    """A NativeIndex or HostIndex over the same embeddings takes numpy
+    queries on the host: the facts equal the JAX service's (DenseIndex)."""
+    from lako_tpu_torch.retrieval import native
+
+    if kind == "native" and not native.native_available():
+        pytest.skip("no host C++ compiler to build the host library")
+    cls = native.NativeIndex if kind == "native" else native.HostIndex
+    svc, dense = world["port"], world["port"].index
+    svc.index = cls(world["emb"])
+    try:
+        qs = _questions(10, seed=3)
+        _same_facts(svc.retrieve_facts(qs), world["jax"].retrieve_facts(qs))
+    finally:
+        svc.index = dense
+
+
 def test_k_is_capped_by_the_index(world):
     """An index smaller than n_context returns all its rows, as in JAX."""
     emb = world["emb"][:2]

@@ -131,14 +131,30 @@ def test_warmup_linear_schedule_matches_jax():
 
 
 def test_clip_is_optax_and_unported_optimizers_raise():
-    """No clipping below the bound, exactly g*clip/norm above it."""
+    """No clipping below the bound, exactly g*clip/norm above it; one
+    Adafactor step (ported since ROADMAP item 13 was done) against optax's
+    within rtol 1e-6 (tests/test_torch_adafactor.py has the rest)."""
     tx = optim.clip_by_global_norm(5.0)
     g = {"a": torch.tensor([3.0, 4.0])}
     assert torch.equal(tx.update(g, ())[0]["a"], g["a"])
     np.testing.assert_allclose(optim.clip_by_global_norm(1.0).update(g, ())[0]["a"].numpy(),
                                [0.6, 0.8], rtol=1e-7)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        optim.make_optimizer(port_config.OptimConfig(optim="adafactor"))
+    cfg = dict(optim="adafactor", lr=1e-2, warmup_steps=0, total_steps=10)
+    rng = np.random.default_rng(0)
+    p = {"w/kernel": rng.standard_normal((128, 256)).astype(np.float32),
+         "b": rng.standard_normal(7).astype(np.float32)}
+    gr = {k: rng.standard_normal(v.shape).astype(np.float32) for k, v in p.items()}
+    jtx = jax_optim._build_optimizer(jax_config.OptimConfig(**cfg))
+    jp = {"w": {"kernel": jnp.asarray(p["w/kernel"])}, "b": jnp.asarray(p["b"])}
+    ju, _ = jtx.update({"w": {"kernel": jnp.asarray(gr["w/kernel"])}, "b": jnp.asarray(gr["b"])},
+                       jtx.init(jp), jp)
+    tx = optim.make_optimizer(port_config.OptimConfig(**cfg))
+    tp = {"w/kernel": torch.from_numpy(p["w/kernel"].T.copy()), "b": torch.from_numpy(p["b"])}
+    u, _ = tx.update({"w/kernel": torch.from_numpy(gr["w/kernel"].T.copy()),
+                      "b": torch.from_numpy(gr["b"])}, tx.init(tp), tp)
+    np.testing.assert_allclose(u["w/kernel"].numpy().T, np.asarray(ju["w"]["kernel"]),
+                               rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(u["b"].numpy(), np.asarray(ju["b"]), rtol=1e-6)
 
 
 def _jax_model_and_params(seed=1, **overrides):
