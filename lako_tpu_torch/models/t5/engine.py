@@ -36,6 +36,11 @@ prefill is copied into the buffers; on CPU tensors the same chunk runs
 eagerly. Unchunked decode is one chunk of ``steps - 1`` steps; with
 ``chunk_size`` the host reads the all-rows-done flag once per chunk and stops
 early (the JAX engine's ``_generate_chunked``).
+
+Each generate call records a stream span ``engine.prefill`` (encoder, cross
+K/V, step 0) and one ``engine.replay`` a chunk, whose host time is the
+graph's launch, and counts ``engine.captures`` and ``engine.replays``
+(core/profiling.py).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from lako_tpu_torch.core import profiling
 from lako_tpu_torch.core.config import T5Config
 from lako_tpu_torch.core.logging import get_logger
 from lako_tpu_torch.models.t5.layers import (
@@ -59,10 +65,11 @@ from lako_tpu_torch.ops.decode_cross_attn import fused_decode_cross_attention
 # t5-large width (B=8, N=2, L=130, bf16, int8 K/V through K3) on an NVIDIA
 # H100 80GB HBM3 at a 700 W power limit: the host's cost of one more chunk
 # (a graph replay and the all-done read) beyond its device time, 0.2341 ms,
-# and one step's device time, 3.3352 ms (PERF.md lists every reading). At
-# these costs even chunk_size=1 adds at most 7%, so the warning below, the
-# JAX engine's guard, does not fire on this card.
-CHUNK_DISPATCH_COST_S = 0.00023
+# to which the stream span ``engine.replay`` adds 0.034-0.069 ms, and one
+# step's device time, 3.3352 ms (PERF.md lists every reading). At these
+# costs even chunk_size=1 adds at most 9%, so the warning below, the JAX
+# engine's guard, does not fire on this card.
+CHUNK_DISPATCH_COST_S = 0.00030
 CHUNK_PER_STEP_COST_S = 0.0033
 
 # A float32 sum of up to this many int8·int8 products is an exact integer:
@@ -566,13 +573,16 @@ class DecodeEngine:
         return _Chunk(graph, tokens, all_done)
 
     def _chunk(self, st: _Batch, start: int, n: int):
-        if not self.graphed:
-            return self._run_chunk(st, start, n)
-        chunk = st.chunks.get((start, n))
-        if chunk is None:
-            chunk = st.chunks[start, n] = self._capture(st, start, n)
-        chunk.graph.replay()
-        return chunk.tokens, chunk.all_done
+        with profiling.span("engine.replay", device=st.tok.device):
+            if not self.graphed:
+                return self._run_chunk(st, start, n)
+            chunk = st.chunks.get((start, n))
+            if chunk is None:
+                profiling.count("engine.captures")
+                chunk = st.chunks[start, n] = self._capture(st, start, n)
+            profiling.count("engine.replays")
+            chunk.graph.replay()
+            return chunk.tokens, chunk.all_done
 
     @torch.inference_mode()
     def generate(self, input_ids: torch.Tensor, mask: torch.Tensor, chunked: bool = True):
@@ -585,16 +595,17 @@ class DecodeEngine:
 
     def _generate(self, input_ids, mask, chunk_size):
         cfg = self.cfg
-        enc, enc_mask = self.model.encode_passages(input_ids, mask)
-        zero = torch.zeros((), dtype=torch.float32, device=enc.device)
-        cross_bias = torch.where(enc_mask, zero, NEG_INF)[:, None, :]  # (B,1,K)
-        st = self._batch(self._project_cross_kv(enc), cross_bias)
+        with profiling.span("engine.prefill", device=input_ids.device):
+            enc, enc_mask = self.model.encode_passages(input_ids, mask)
+            zero = torch.zeros((), dtype=torch.float32, device=enc.device)
+            cross_bias = torch.where(enc_mask, zero, NEG_INF)[:, None, :]  # (B,1,K)
+            st = self._batch(self._project_cross_kv(enc), cross_bias)
 
-        start = torch.full_like(st.tok, cfg.decoder_start_token_id)
-        logits0, xl0 = self._one_step(start, 0, st, self.collect)
-        tok = logits0.argmax(dim=-1)
-        st.tok.copy_(tok)
-        torch.eq(tok, cfg.eos_token_id, out=st.done)
+            start = torch.full_like(st.tok, cfg.decoder_start_token_id)
+            logits0, xl0 = self._one_step(start, 0, st, self.collect)
+            tok = logits0.argmax(dim=-1)
+            st.tok.copy_(tok)
+            torch.eq(tok, cfg.eos_token_id, out=st.done)
         columns = [tok[:, None]]
         step, chunk = 1, chunk_size or self.steps - 1
         self.last_chunks = 0

@@ -15,6 +15,7 @@ refused at construction.
 
 from __future__ import annotations
 
+import itertools
 import json
 from collections import deque
 from dataclasses import dataclass, field
@@ -23,6 +24,7 @@ from typing import Deque, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from lako_tpu_torch.core import profiling
 from lako_tpu_torch.core.config import ReaderDataConfig, T5Config
 from lako_tpu_torch.core.device import resolve_device
 from lako_tpu_torch.core.logging import get_logger
@@ -89,6 +91,11 @@ class LakoService:
     ``max(batch_size // 2, 5)``), full-length below. Each decision is kept
     in ``policy_decisions``. Beam search has no chunked program and ignores
     the policy.
+
+    Each ``answer_batch`` is a span ``serve.batch`` and counts
+    ``serve.batches`` and ``serve.requests``; inside it the spans
+    ``serve.retrieve``, ``serve.collate`` and ``serve.fetch`` (each device
+    batch) and ``serve.detokenize`` (core/profiling.py).
     """
 
     def __init__(self, cfg: ServiceConfig, t5_config: T5Config,
@@ -188,16 +195,17 @@ class LakoService:
         ``[{sentence, id, score}]``, the top ``min(n_context, index.n)``."""
         if self.index is None or self.retriever is None:
             return [[] for _ in questions]
-        texts = [q["question"] + " " + q.get("caption", "") for q in questions]
-        emb = self._embed_q(*self.bert_tokenizer.batch_encode(
-            texts, self.retriever.config.question_maxlength))
-        if isinstance(self.index, (NativeIndex, HostIndex)):   # they search numpy on the host
-            emb = emb.cpu().numpy()
-        k = min(self.cfg.n_context, getattr(self.index, "n", self.cfg.n_context))
-        top_ids, scores = self.index.search(emb, k=k)
-        return [[{"sentence": self.id_to_sentence.get(int(i), ""), "id": int(i),
-                  "score": float(s)} for i, s in zip(row_ids, row_scores)]
-                for row_ids, row_scores in zip(top_ids, scores)]
+        with profiling.span("serve.retrieve"):
+            texts = [q["question"] + " " + q.get("caption", "") for q in questions]
+            emb = self._embed_q(*self.bert_tokenizer.batch_encode(
+                texts, self.retriever.config.question_maxlength))
+            if isinstance(self.index, (NativeIndex, HostIndex)):   # they search numpy on the host
+                emb = emb.cpu().numpy()
+            k = min(self.cfg.n_context, getattr(self.index, "n", self.cfg.n_context))
+            top_ids, scores = self.index.search(emb, k=k)
+            return [[{"sentence": self.id_to_sentence.get(int(i), ""), "id": int(i),
+                      "score": float(s)} for i, s in zip(row_ids, row_scores)]
+                    for row_ids, row_scores in zip(top_ids, scores)]
 
     # -- reading -------------------------------------------------------------
 
@@ -225,16 +233,18 @@ class LakoService:
         data_cfg = self.cfg.data
         if any(not e["fact"] for e in examples):
             data_cfg = data_cfg.replace(use_fact=False)
-        ds = ReaderDataset(examples, data_cfg)
-        collator = ReaderCollator(data_cfg, self.tokenizer)
-
         B = self.cfg.batch_size
         tokens = []
+        ds = collator = None
         for s in range(0, len(examples), B):
-            chunk = [ds[i] for i in range(s, min(s + B, len(examples)))]
-            batch = collator(chunk, pad_to=B)
-            ids = torch.from_numpy(batch.passage_ids).to(self.device)
-            pmask = torch.from_numpy(batch.passage_mask).to(self.device)
+            with profiling.span("serve.collate"):
+                if ds is None:          # built inside the first device batch's span
+                    ds = ReaderDataset(examples, data_cfg)
+                    collator = ReaderCollator(data_cfg, self.tokenizer)
+                chunk = [ds[i] for i in range(s, min(s + B, len(examples)))]
+                batch = collator(chunk, pad_to=B)
+                ids = torch.from_numpy(batch.passage_ids).to(self.device)
+                pmask = torch.from_numpy(batch.passage_mask).to(self.device)
             kw = {}
             if self._policy:
                 use_chunked = len(chunk) >= self._policy_threshold
@@ -243,7 +253,8 @@ class LakoService:
                 if self._takes_chunked:
                     kw["chunked"] = use_chunked
             out, _ = self._generate(ids, pmask, **kw)
-            tokens.append(out[: len(chunk)].cpu().numpy())
+            with profiling.span("serve.fetch"):
+                tokens.append(out[: len(chunk)].cpu().numpy())
         steps = self.cfg.max_length - 1
         return examples, (np.concatenate(tokens) if tokens
                           else np.zeros((0, steps), np.int32))
@@ -251,10 +262,13 @@ class LakoService:
     def answer_batch(self, requests: Sequence[dict]) -> List[dict]:
         """requests: [{question, caption, fact?: [{sentence, id, score?}]}] →
         [{answer, facts}]."""
-        examples, tokens = self.generate_tokens(requests)
-        decoded = self.tokenizer.batch_decode(tokens)
-        return [{"answer": answer, "facts": ex["fact"][: self.cfg.n_context]}
-                for answer, ex in zip(decoded, examples)]
+        with profiling.span("serve.batch", id=profiling.count("serve.batches")):
+            profiling.count("serve.requests", len(requests))
+            examples, tokens = self.generate_tokens(requests)
+            with profiling.span("serve.detokenize"):
+                decoded = self.tokenizer.batch_decode(tokens)
+            return [{"answer": answer, "facts": ex["fact"][: self.cfg.n_context]}
+                    for answer, ex in zip(decoded, examples)]
 
     def answer(self, question: str, caption: str = "",
                facts: Optional[List[dict]] = None) -> dict:
@@ -271,7 +285,10 @@ class MicroBatcher:
     arrives it keeps collecting until ``max_batch`` requests are in hand or
     ``window_s`` has elapsed, then runs ONE ``answer_batch`` for all of them.
     Clients block on a per-request event. A bad request poisons only its own
-    slot (the batch is retried per request on error)."""
+    slot (the batch is retried per request on error). Each request's wait,
+    from its put to just before the ``answer_batch`` that takes it, is a
+    ``serve.queue`` span (core/profiling.py), its id the request's sequence
+    number."""
 
     def __init__(self, service: LakoService, max_batch: int, window_s: float):
         import queue
@@ -281,6 +298,7 @@ class MicroBatcher:
         self._max_batch = max_batch
         self._window = window_s
         self._q: "queue.Queue" = queue.Queue()
+        self._seq = itertools.count()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -298,8 +316,10 @@ class MicroBatcher:
         import threading
         import time
 
-        slots = [{"req": r, "ev": threading.Event()} for r in requests]
+        slots = [{"req": r, "ev": threading.Event(), "seq": next(self._seq)}
+                 for r in requests]
         for slot in slots:
+            slot["put_ns"] = profiling.now()
             self._q.put(slot)
         deadline = time.monotonic() + timeout
         timed_out = False
@@ -327,6 +347,9 @@ class MicroBatcher:
                     slots.append(self._q.get(timeout=remaining))
                 except queue.Empty:
                     break
+            taken = profiling.now()
+            for s in slots:
+                profiling.record("serve.queue", s["put_ns"], taken, id=s["seq"])
             try:
                 results = self._service.answer_batch([s["req"] for s in slots])
                 for s, r in zip(slots, results):

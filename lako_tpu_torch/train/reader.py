@@ -42,6 +42,7 @@ from lako_tpu_torch.core.config import ReaderTrainConfig, t5_config_for_size
 from lako_tpu_torch.core.device import resolve_device
 from lako_tpu_torch.core.distributed import is_main
 from lako_tpu_torch.core.logging import get_logger
+from lako_tpu_torch.core import profiling
 from lako_tpu_torch.core.profiling import start_trace
 from lako_tpu_torch.data import ReaderCollator, ReaderDataset, batch_iterator
 from lako_tpu_torch.models.t5 import FiDT5, init_fid_t5, jax_param_paths
@@ -67,7 +68,9 @@ def make_reader_train_step(model: FiDT5, backend: str = "flax") -> Callable:
     state.step)``, as the JAX step folds the step into its key. backend:
     "flax" or "scan". In the JAX package "scan" is a compile-time layout
     (``lax.scan`` over stacked layers) with the same loss; eager PyTorch has
-    nothing to compile, so both run this same step.
+    nothing to compile, so both run this same step. The forward and backward
+    are the stream span ``train.fwd_bwd``, the update ``train.optimizer``
+    (core/profiling.py).
     """
     if backend not in ("flax", "scan"):
         raise ValueError(f"unknown train backend {backend!r}")
@@ -77,10 +80,11 @@ def make_reader_train_step(model: FiDT5, backend: str = "flax") -> Callable:
         set_dropout_key(model, seed, state.step)
         names = list(state.params)
         params = [state.params[n] for n in names]
-        loss, _, _ = model(ids, mask, labels)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g
-                 for n, p, g in zip(names, params, grads)}
+        with profiling.span("train.fwd_bwd", device=ids.device):
+            loss, _, _ = model(ids, mask, labels)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = {n: torch.zeros_like(p) if g is None else g
+                     for n, p, g in zip(names, params, grads)}
         return state.apply_gradients(grads), loss.detach()
 
     return train_step

@@ -7,8 +7,8 @@ does not match raising; ``train_reader`` with checkpoints, a full resume
 JAX function from the same flax init (the JAX side on its 8-device CPU mesh
 at batch 1 a device, the port on one device at batch 8: the same batches);
 the preemption save and exit, the signal handlers and the requeue command;
-the profiler window, ``trace`` and ``StepTimer``; ``weighted_average`` over
-two gloo processes.
+the profiler window, ``start_trace`` and the spans it mirrors;
+``weighted_average`` over two gloo processes.
 """
 
 import json
@@ -228,28 +228,38 @@ def test_signal_handlers_and_requeue(monkeypatch):
 
 
 def test_trace_context_and_step_timer(tmp_path):
-    """profiling.trace writes one Chrome trace holding the block's annotated
-    operators; StepTimer leaves its warm-up steps out of the mean."""
-    timer = profiling.StepTimer(warmup=1)
-    with profiling.trace(str(tmp_path)):
-        for _ in range(3):
-            timer.start()
-            with timer.annotate("step"):
-                torch.mm(torch.ones(8, 8), torch.ones(8, 8))
-            timer.stop()
-    (trace,) = tmp_path.iterdir()
-    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
-    assert {"step", "aten::mm"} <= names
-    assert timer.count == 3 and timer.mean == timer.total / 2
-    with profiling.trace(None):
+    """start_trace writes one Chrome trace holding the program's spans,
+    mirrored as ranges of their names around their operators, each flagged
+    as profiled; a span's start on the profiler's clock lies within 1 ms of
+    its range's. Spans after the trace are not flagged."""
+    stop = profiling.start_trace(str(tmp_path))
+    with profiling.span("warm"):              # the process's first range sets up
         pass
+    with profiling.span("step.outer") as outer:
+        with profiling.span("step.inner") as inner:
+            torch.mm(torch.ones(8, 8), torch.ones(8, 8))
+    path = stop()
+    with profiling.span("step.after") as after:
+        pass
+    assert [p.name for p in tmp_path.iterdir()] == [Path(path).name]
+    trace = json.loads(Path(path).read_text())
+    base = trace.get("baseTimeNanoseconds", 0)
+    ranges = {e["name"]: e for e in trace["traceEvents"] if e.get("name", "").startswith("step.")}
+    assert {"step.outer", "step.inner"} == set(ranges)
+    assert "aten::mm" in {e.get("name") for e in trace["traceEvents"]}
+    for span in (outer, inner):
+        start_ns = ranges[span.name]["ts"] * 1e3 + base
+        assert abs(profiling.profiler_ns(span.start_ns) - start_ns) < 1e6
+        assert span.profiled
+    assert inner.parent == outer.sid and not after.profiled
 
 
 @pytest.mark.parametrize("epochs,batch", [(3, 8), (1, 4)])
 def test_profile_window_writes_a_trace(tmp_path, epochs, batch):
     """profile_dir traces this process's steps 3-5; a run that ends first
     (4 steps) closes the trace at its end. Either way one Chrome trace of
-    the train steps' operators lands in profile_dir."""
+    the train steps' operators, named by the step's spans, lands in
+    profile_dir."""
     cfg, t5 = _fixture_config(port_config)
     cfg = cfg.replace(epochs=epochs, profile_dir=str(tmp_path / "prof"),
                       per_device_batch_size=batch)
@@ -259,6 +269,7 @@ def test_profile_window_writes_a_trace(tmp_path, epochs, batch):
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
+    assert {"train.fwd_bwd", "train.optimizer"} <= {e.get("name") for e in events}
 
 
 def _free_port() -> int:
