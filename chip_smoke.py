@@ -35,7 +35,11 @@
    micro shape; one launch over a tree of odd leaves; one launch over the
    training path's 509 leaves, each in its routed order, timed there and
    bounded by K5_OPS, its operation model, or its bytes); K6 its
-   requantization-free fragment.
+   requantization-free fragment; K7 the fused Adafactor update at t5-3b's
+   509 leaves (``run_adafactor``: three updates bitwise equal in a second
+   run and within tolerance of the plain version, 4 launches an update,
+   the scratch under 1% of the parameters and gradients; timed beside its
+   byte bound, the plain version and the eager chain).
 4. Floor proof: the port of the JAX package's 8-bit Adam micro-benchmark
    (``lako_tpu_torch.bench.adam8_micro``) times K5, K6 and the plain
    bf16-moment Adam update at the micro shape and prints the share of K5's
@@ -256,7 +260,7 @@ SOUNDS = ["meow", "woof", "moo", "quack", "croak", "buzz", "hoot", "howl", "neig
 # the name of K3's kernel function (csrc/decode_cross_attn.cu) in a profiler trace
 K3_KERNEL = "decode_cross_kernel"
 PTXAS_SOURCES = ("flash_streamed_fwd.cu", "fused_attention.cu", "flash_streamed_bwd.cu",
-                 "decode_cross_attn.cu", "adam8.cu")
+                 "decode_cross_attn.cu", "adam8.cu", "adafactor.cu")
 
 
 def log(*args) -> None:
@@ -1027,6 +1031,7 @@ def post(port: int, request: dict):
 
 def counters():
     """Every kernel wrapper, by the name the summary line gives it."""
+    from lako_tpu_torch.ops import adafactor_kernel as k7
     from lako_tpu_torch.ops import adam8_kernel as k5
     from lako_tpu_torch.ops import decode_cross_attn as k3
     from lako_tpu_torch.ops import flash_attention as k4
@@ -1040,7 +1045,8 @@ def counters():
             "fused_attention": k4.fused_attention,
             "fused_adam8_update_leaves": k5.fused_adam8_update_leaves,
             "fused_adam8_update": k5.fused_adam8_update,
-            "adam8_ema_fragment": k5.adam8_ema_fragment}
+            "adam8_ema_fragment": k5.adam8_ema_fragment,
+            "fused_adafactor_update": k7.fused_adafactor_update}
 
 
 def reset_counts() -> None:
@@ -1635,6 +1641,158 @@ def check_train_step(dev, tok, batch, route):
         gc.collect()
         torch.cuda.empty_cache()
     return reference
+
+
+# K7 at t5-3b's 509 leaves: Adafactor's learning rate and clip, the scale of
+# each step's seeded gradients (the second under the clip's norm, the others
+# over it), the parameters' scale; the plain version's tolerances (the
+# statistics' rtol, the parameters' rtol and atol: sums run in another
+# order); the scratch's share of the parameters and gradients
+K7_SIZE, K7_LR, K7_CLIP, K7_PARAM_SCALE = "3b", 1e-3, 1.0, 0.05
+K7_GRAD_SCALES = (1e-3, 1e-6, 1e-3)
+K7_STATE_RTOL, K7_PARAM_TOL = 1e-6, (1e-5, 1e-7)
+K7_SCRATCH_SHARE = 0.01
+K7_LAUNCHES = 4     # an update of a tree with a factored leaf
+
+
+def k7_tree(size: str):
+    """{JAX path: the port's shape} of t5-{size}'s parameters, from a model
+    on the meta device (no weights)."""
+    from lako_tpu_torch.core.config import t5_config_for_size
+    from lako_tpu_torch.models.t5 import jax_param_paths
+    from lako_tpu_torch.models.t5.model import FiDT5
+
+    with torch.device("meta"):
+        model = FiDT5(t5_config_for_size(size))
+    paths = jax_param_paths(model)
+    return {paths[name]: tuple(p.shape) for name, p in model.named_parameters()}
+
+
+def run_adafactor(dev, size: str = K7_SIZE):
+    """K7 (``clipped_adafactor`` on float32 leaves on the card) at the leaves
+    of t5-``size``: three updates from seeded parameters and gradients, run
+    twice (bitwise equal) and once with the wrapper swapped for its plain
+    version (statistics within K7_STATE_RTOL, parameters within
+    K7_PARAM_TOL); K7_LAUNCHES an update; the updates in the gradients'
+    buffers; the allocator's peak during an update at most
+    K7_SCRATCH_SHARE of the parameters and gradients above what was
+    allocated before it. Then device ms of an update and of the update with
+    ``apply_updates`` (CUDA graphs), of the plain version and of the eager
+    chain (CUDA events), beside the byte bounds. Returns the kernel's entry
+    (its launches come from the HF warm start's train-reader run, a train
+    step's main path)."""
+    from unittest import mock
+
+    from lako_tpu_torch.ops import adafactor_kernel as k7
+    from lako_tpu_torch.train import optim
+
+    shapes = k7_tree(size)
+    n = sum(math.prod(s) for s in shapes.values())
+    tree_bytes = 2 * 4 * n                        # parameters and gradients, float32
+    log(f"K7 fused_adafactor_update (csrc/adafactor.cu) at t5-{size}'s {len(shapes)} leaves, "
+        f"{n / 1e9:.4f}G f32 elements, vs its plain version:")
+    tx = optim.clipped_adafactor(K7_CLIP, K7_LR)
+
+    def seeded(salt, scale):
+        gen = torch.Generator(device=dev).manual_seed(SEED + salt)
+        return {p: torch.randn(s, generator=gen, device=dev).mul_(scale)
+                for p, s in shapes.items()}
+
+    def fused_step(grads, state, params):
+        upd, state = tx.update(grads, state, params)
+        if any(upd[k] is not grads[k] for k in grads):
+            raise AssertionError("K7's updates are not the gradients' buffers")
+        optim.apply_updates(params, upd)
+        return state
+
+    def run():
+        params = seeded(7, K7_PARAM_SCALE)
+        state, extra = tx.init(params), 0
+        for step, scale in enumerate(K7_GRAD_SCALES):
+            grads = seeded(70 + step, scale)
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            state = fused_step(grads, state, params)
+            torch.cuda.synchronize(dev)
+            extra = max(extra, torch.cuda.max_memory_allocated(dev) - base)
+            del grads
+        return params, state, extra
+
+    def stats(state):
+        fact = state[1].factored_rms
+        return fact, {(name, k): t for name in ("v_row", "v_col", "v")
+                      for k, t in getattr(fact, name).items()}
+
+    launches0 = k7.fused_adafactor_update.launches
+    params, state, extra = run()
+    launches = k7.fused_adafactor_update.launches - launches0
+    steps = len(K7_GRAD_SCALES)
+    log(f"  {steps} updates: {launches} launches ({launches / steps:g} an update), the "
+        f"allocator's peak {extra / 1e6:.1f} MB above the tree's {tree_bytes / 1e9:.2f} GB "
+        f"of parameters and gradients (limit {K7_SCRATCH_SHARE:.0%}: "
+        f"{K7_SCRATCH_SHARE * tree_bytes / 1e6:.1f} MB)")
+    if launches != K7_LAUNCHES * steps or extra > K7_SCRATCH_SHARE * tree_bytes:
+        raise AssertionError("K7: launches or scratch off")
+    fact, v = stats(state)
+    again, state_b, _ = run()
+    fact_b, v_b = stats(state_b)
+    same = (fact.count == fact_b.count == steps
+            and all(torch.equal(params[k], again[k]) for k in params)
+            and all(torch.equal(t, v_b[k]) for k, t in v.items()))
+    log(f"  a second run bitwise equal: {same}")
+    if not same:
+        raise AssertionError("K7 is not deterministic")
+    del again, state_b, fact_b, v_b
+    with mock.patch.object(k7, "fused_adafactor_update", k7.fused_adafactor_update_reference):
+        plain, state_p, _ = run()
+    _, v_p = stats(state_p)
+    errs = {k: float(torch.where(t == v_p[k], 0.0, (t - v_p[k]).abs() / v_p[k].abs()).max())
+            for k, t in v.items()}
+    worst = sorted(errs, key=errs.get)[-3:]
+    state_err = errs[worst[-1]]
+    log(f"  the statistics furthest from the plain version: "
+        f"{[(name, k, shapes[k], f'{errs[name, k]:.3e}') for name, k in worst]}")
+    rtol, atol = K7_PARAM_TOL
+    param_err = max(float(((params[k] - plain[k]).abs() - rtol * plain[k].abs()).max())
+                    for k in params)
+    param_abs = max(float((params[k] - plain[k]).abs().max()) for k in params)
+    log(f"  against the plain version after {steps} updates: statistics max rel err "
+        f"{state_err:.3e} (rtol {K7_STATE_RTOL:g}); parameters max abs err {param_abs:.3e}, "
+        f"max excess over rtol {rtol:g} {param_err:.3e} (atol {atol:g})")
+    if not (state_err <= K7_STATE_RTOL and param_err <= atol):
+        raise AssertionError("K7 disagrees with its plain version")
+    del plain, state_p, v_p
+    gc.collect()
+
+    grads = seeded(70, K7_GRAD_SCALES[0])
+
+    def update():
+        tx.update(grads, state, params)
+
+    def update_apply():
+        upd, _ = tx.update(grads, state, params)
+        optim.apply_updates(params, upd)
+
+    kern = device_ms(update, calls=4, replays=3)
+    step_ms = device_ms(update_apply, calls=4, replays=3)
+    with mock.patch.object(k7, "fused_adafactor_update", k7.fused_adafactor_update_reference):
+        plain_ms = event_ms(update, calls=2)
+    chain = optim.chain(optim.clip_by_global_norm(K7_CLIP), optim.adafactor(K7_LR))
+    chain_ms = event_ms(lambda: chain.update(grads, state, params), calls=2)
+    step_bound = 32 * n / PEAK_BYTES * 1e3
+    log(f"  device ms an update {kern:.3f}, with apply_updates {step_ms:.3f} (bound "
+        f"{step_bound:.3f} by 32 bytes an element, {step_ms / step_bound:.2f}x); the plain "
+        f"version {plain_ms:.1f}, the eager chain {chain_ms:.1f}")
+    out = entry("fused_adafactor_update", "csrc/adafactor.cu",
+                "none (optax.adafactor under XLA)", param_abs, kern, plain_ms, 20 * n, 20 * n,
+                "f32", None)
+    out.update(step_ms=step_ms, step_bound_ms=step_bound, chain_ms=chain_ms,
+               state_rel_err=state_err, bitwise_rerun=same, scratch_bytes=extra)
+    del grads, params, state, chain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_adam8_step(dev, grads):
@@ -3252,12 +3410,16 @@ def run_hf_warm_start(dev):
         expected = {n: c * arch.num_layers * out["steps"]
                     for n, c in STEP_LAUNCHES["streamed"].items()}
         expected["streamed_attention"] += arch.num_layers * eval_batches
+        # K7: K7_LAUNCHES an update, one update a step (no accumulation)
+        expected["fused_adafactor_update"] = (K7_LAUNCHES * out["steps"]
+                                              // reader.optim.accumulation_steps)
         log(f"  train-reader --model-path <HF dir>, Adafactor lr {reader.optim.lr}, streamed "
             f"kernels, B=8, N={reader.data.n_passages}, L={reader.data.text_maxlength}, bf16, "
             f"f32 masters, remat: {out['steps']} steps and 1 evaluation in {train_s:.1f} s "
             f"(its checkpoint saves included); history {json.dumps(out['history'])}")
         check_counts("train-reader from the HF directory (STEP_LAUNCHES x steps, K1 in the "
-                     f"evaluation's {eval_batches} batch)", launches, expected)
+                     f"evaluation's {eval_batches} batch, K7 {K7_LAUNCHES} an update)", launches,
+                     expected)
         if out["steps"] != HF_STEPS or not all(math.isfinite(h["loss"]) for h in out["history"]):
             raise AssertionError(f"train-reader: {out}")
 
@@ -3314,7 +3476,8 @@ LAUNCHES_FROM = {"streamed_attention": ("training", "streamed"),
                  "fused_decode_cross_attention": ("profiled", "chunked"),
                  "fused_attention": ("training", "fused"),
                  "fused_adam8_update_leaves": ("training", "fused"),
-                 "adam8_ema_fragment": ("floor_proof", "micro")}
+                 "adam8_ema_fragment": ("floor_proof", "micro"),
+                 "fused_adafactor_update": ("hf", "streamed")}
 
 
 def main() -> int:
@@ -3339,10 +3502,11 @@ def main() -> int:
                                   text=True, check=True, timeout=60).stdout.split()[0])
     log(f"SM clock, maximum: {sm_mhz:.0f} MHz (nvidia-smi clocks.max.sm)")
 
-    t0 = time.perf_counter()
     ptxas = start_ptxas(_build)
-    _build.load_library()
-    log(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    for library in _build.LIBRARIES:
+        t0 = time.perf_counter()
+        _build.load_library(library)
+        log(f"build: {_build.library_path(library).name} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     _build.load_host_library()                   # g++; a failed build fails the run
     log(f"host build: {_build.host_library_path().name} (csrc/host/*.cpp, g++ "
@@ -3356,6 +3520,7 @@ def main() -> int:
     check_streamed_long(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    kernels.append(run_adafactor(dev))            # K7 at t5-3b's leaves
     runs = {"floor_proof": run_floor_proof(dev)}   # K5 and K6
     gc.collect()
     torch.cuda.empty_cache()
@@ -3381,7 +3546,7 @@ def main() -> int:
     runs["loop"] = run_lako_loop(dev)            # K1 + K2a/K2b/K2c through full-loop
     gc.collect()
     torch.cuda.empty_cache()
-    runs["hf"] = run_hf_warm_start(dev)          # K1 + K2a/K2b/K2c from an HF directory
+    runs["hf"] = run_hf_warm_start(dev)          # K1 + K2a/K2b/K2c + K7 from an HF directory
     gc.collect()
     torch.cuda.empty_cache()
     runs["profiled"] = run_profiled(dev)         # K3 in captured chunks, from a trace
@@ -3393,7 +3558,8 @@ def main() -> int:
     log(f"launches: {({e['name']: e['launches'] for e in kernels})} (K1 and K2 from the "
         f"streamed route's train_reader run, K3 from the chunked service's profiled run, "
         f"with its device_launches from the trace, K4 and K5 from the whole-block route's "
-        f"train_reader run, K6 from the floor proof)")
+        f"train_reader run, K6 from the floor proof, K7 from the HF warm start's Adafactor "
+        f"train-reader run)")
     log(f"the whole script: {time.perf_counter() - t_script:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,12 +1,15 @@
 """Build the CUDA kernels under ``lako_tpu_torch/csrc`` at first use.
 
-Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all started
-together, and the objects are linked into one shared library with a plain C
-interface, which is loaded with ``ctypes``. The library lands in
-``build/lako_tpu_torch/`` at the repository root, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one is
-loaded as is. Nothing falls back: without ``nvcc`` a build raises with the
-commands it could not run.
+The ``csrc/*.cu`` files make two shared libraries with a plain C
+interface (:data:`LIBRARIES`): the fused Adafactor update (K7) alone, since
+a training run with Adafactor binds nothing else, and every other kernel.
+Each holds ``common.cu`` (error strings, graph holds). A library's sources
+are compiled by one ``nvcc`` process each, all started together, linked,
+and loaded with ``ctypes`` when one of its entries is first bound. It lands
+in ``build/lako_tpu_torch/`` at the repository root, named by a hash of its
+sources, the headers and the flags, so an edited source rebuilds and an
+unchanged one is loaded as is. Nothing falls back: without ``nvcc`` a build
+raises with the commands it could not run.
 
 The host engines (``csrc/host/*.cpp``, byte-for-byte copies of the JAX
 package's ``native/`` sources: the MIPS scan, BM25 and the obj36 decoder)
@@ -50,11 +53,16 @@ HOST_DIR = CSRC_DIR / "host"
 HOST_CXXFLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-Wextra")
 HOST_LDFLAGS = ("-shared", "-pthread")
 
+# a library's name, and the .cu files it holds besides common.cu; "kernels"
+# holds every file that no other library names
+LIBRARIES = {"kernels": None, "adafactor": ("adafactor.cu",)}
+
 _lock = threading.Lock()
-_library = []   # the loaded CDLL, once built
+_libraries: dict = {}   # the loaded CDLLs, by library name, once built
 _host_library = []
-# host buffers that captured CUDA graphs read at each replay, by the hold
-# (csrc/common.cu lako_graph_hold) that says when their graph is gone
+# host buffers that captured CUDA graphs read at each replay, and the
+# library whose hold (csrc/common.cu lako_graph_hold) says when their graph
+# is gone, by the hold
 _graph_buffers: dict = {}
 
 
@@ -67,22 +75,27 @@ def find_nvcc():
     return str(cand) if cand.is_file() else None
 
 
-def _sources():
-    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+def _sources(library: str = "kernels"):
+    """The library's ``.cu`` files, common.cu first, then every header."""
+    named = {name for files in LIBRARIES.values() if files for name in files}
+    files = LIBRARIES[library]
+    cu = [s for s in sorted(CSRC_DIR.glob("*.cu")) if s.name != "common.cu"
+          and (s.name in files if files else s.name not in named)]
+    return [CSRC_DIR / "common.cu", *cu, *sorted(CSRC_DIR.glob("*.cuh"))]
 
 
-def library_path() -> Path:
+def library_path(library: str = "kernels") -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(library):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"liblako_kernels-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"liblako_{library}-{h.hexdigest()[:16]}.so"
 
 
-def compile_library(out: Path) -> float:
-    """Compile every ``.cu`` source at once (one nvcc each), link them into
-    ``out``; returns the seconds it took."""
-    cu = [s for s in _sources() if s.suffix == ".cu"]
+def compile_library(out: Path, library: str = "kernels") -> float:
+    """Compile the library's ``.cu`` sources at once (one nvcc each), link
+    them into ``out``; returns the seconds it took."""
+    cu = [s for s in _sources(library) if s.suffix == ".cu"]
     work = out.with_name(f"{out.name}.{os.getpid()}.d")
     tmp = work / out.name
     found = find_nvcc()
@@ -125,19 +138,20 @@ def compile_library(out: Path) -> float:
     return seconds
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built first if missing. Loaded once per
-    process: later calls neither hash the sources nor touch the disk."""
+def load_library(library: str = "kernels") -> ctypes.CDLL:
+    """A shared library of :data:`LIBRARIES`, built first if missing. Loaded
+    once per process: later calls neither hash the sources nor touch the
+    disk."""
     with _lock:
-        if not _library:
-            path = library_path()
+        if library not in _libraries:
+            path = library_path(library)
             if not path.exists():
-                compile_library(path)
+                compile_library(path, library)
             lib = ctypes.CDLL(str(path))
             lib.lako_cuda_error_string.argtypes = [ctypes.c_int]
             lib.lako_cuda_error_string.restype = ctypes.c_char_p
-            _library.append(lib)
-        return _library[0]
+            _libraries[library] = lib
+        return _libraries[library]
 
 
 def find_cxx() -> str:
@@ -236,10 +250,11 @@ def signature(n_pointers: int, n_ints: int, n_uints: int = 0, n_floats: int = 0)
 
 
 @functools.cache
-def bind(name: str, n_pointers: int, n_ints: int, n_uints: int = 0, n_floats: int = 0):
-    """C entry ``name`` with the :func:`signature` of these counts, returning
-    a cudaError_t code as ``int``."""
-    fn = getattr(load_library(), name)
+def bind(name: str, n_pointers: int, n_ints: int, n_uints: int = 0, n_floats: int = 0,
+         library: str = "kernels"):
+    """C entry ``name`` of ``library`` with the :func:`signature` of these
+    counts, returning a cudaError_t code as ``int``."""
+    fn = getattr(load_library(library), name)
     fn.argtypes = signature(n_pointers, n_ints, n_uints, n_floats)
     fn.restype = ctypes.c_int
     return fn
@@ -247,9 +262,10 @@ def bind(name: str, n_pointers: int, n_ints: int, n_uints: int = 0, n_floats: in
 
 def check_launch(code: int, what: str) -> None:
     """Raise if a C entry reported a CUDA error (a refused launch never runs,
-    and a later synchronize would not report it)."""
+    and a later synchronize would not report it). The entry's library is
+    loaded, and each library holds common.cu's error strings."""
     if code != 0:
-        msg = load_library().lako_cuda_error_string(code).decode()
+        msg = next(iter(_libraries.values())).lako_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
@@ -259,18 +275,18 @@ def stream_of(t: torch.Tensor):
 
 def release_graph_buffers() -> None:
     """Drop the host buffers of :func:`keep_for_graph` whose graphs are gone."""
-    if _graph_buffers:
-        lib = load_library()
-        for hold in [h for h in _graph_buffers if lib.lako_graph_released(ctypes.c_void_p(h))]:
-            del _graph_buffers[hold]
+    for hold in [h for h, (_, lib) in _graph_buffers.items()
+                 if lib.lako_graph_released(ctypes.c_void_p(h))]:
+        del _graph_buffers[hold]
 
 
-def keep_for_graph(buffer: torch.Tensor, stream) -> None:
+def keep_for_graph(buffer: torch.Tensor, stream, library: str = "kernels") -> None:
     """Keep ``buffer``, the host source of a copy that ``stream`` is
     capturing into a CUDA graph, as long as that graph or an executable
-    graph made from it exists."""
+    graph made from it exists (a hold of ``library``'s common.cu)."""
     release_graph_buffers()
+    lib = load_library(library)
     hold = ctypes.c_void_p()
-    code = load_library().lako_graph_hold(ctypes.byref(hold), ctypes.c_void_p(stream))
+    code = lib.lako_graph_hold(ctypes.byref(hold), ctypes.c_void_p(stream))
     check_launch(code, "keep_for_graph")
-    _graph_buffers[hold.value] = buffer
+    _graph_buffers[hold.value] = (buffer, lib)

@@ -35,7 +35,9 @@ weight decay, as the JAX package builds it::
 Its factored statistics are decided on the JAX leaf's shape: a dense
 ``kernel`` is ``(in, out)`` there and ``(out, in)`` here, so each kernel is
 read transposed and its ``v_row`` / ``v_col`` are the JAX leaf's, square
-matrices included.
+matrices included. On a tree of float32 leaves on the card the clip and
+the chain run as one fused update in four launches (K7,
+ops/adafactor_kernel.py), in place (:func:`clipped_adafactor`).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple, U
 import numpy as np
 import torch
 
+from lako_tpu_torch.core import profiling
 from lako_tpu_torch.core.config import OptimConfig
 
 Tree = Dict[str, torch.Tensor]
@@ -164,12 +167,16 @@ def _layerwise_scale(decay: float, layer_key_prefix: str = "layer_") -> Gradient
     return GradientTransformation(lambda params: (), update)
 
 
+def _learning_rate(lr: Schedule, count: int) -> float:
+    return lr(count) if callable(lr) else lr
+
+
 def scale_by_learning_rate(lr: Schedule, flip_sign: bool = True) -> GradientTransformation:
     """Multiply by ``-lr(count)`` (or ``-lr``; ``+`` without ``flip_sign``);
     the count starts at 0."""
 
     def update(updates: Tree, count: int, params=None):
-        step = lr(count) if callable(lr) else lr
+        step = _learning_rate(lr, count)
         step = -step if flip_sign else step
         return {k: u * _scalar(step, u.dtype) for k, u in updates.items()}, count + 1
 
@@ -186,7 +193,7 @@ def _hf_decoupled_decay(weight_decay: float, lr_schedule: Schedule,
     def update(updates: Tree, count: int, params: Optional[Tree] = None):
         if params is None:
             raise ValueError("params required for decoupled weight decay")
-        lr = lr_schedule(count) if callable(lr_schedule) else lr_schedule
+        lr = _learning_rate(lr_schedule, count)
         mask = mask_fn(params)
         out = {}
         for k, u in updates.items():
@@ -236,6 +243,13 @@ _DECAY_RATE, _MIN_DIM_SIZE_TO_FACTOR, _EPSILON = 0.8, 128, 1e-30
 _CLIPPING_THRESHOLD, _MIN_PARAM_SCALE = 1.0, 1e-3
 
 
+def _factored_decay(count: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(decay, 1 - decay)`` of the second moment at update ``count + 1``:
+    ``1 - (count + 1)^-0.8``, float32 scalars as optax computes them."""
+    decay = 1.0 - torch.tensor(count + 1, dtype=torch.float32) ** (-_DECAY_RATE)
+    return decay, 1.0 - decay
+
+
 def scale_by_factored_rms() -> GradientTransformation:
     """optax's ``scale_by_factored_rms`` (factored=True, no step offset):
     the second moment of a leaf whose two largest axes have 128 elements is
@@ -263,9 +277,7 @@ def scale_by_factored_rms() -> GradientTransformation:
     def update(updates: Tree, state: FactoredState, params: Optional[Tree] = None):
         if params is None:
             raise ValueError("params required for scale_by_factored_rms")
-        t = torch.tensor(state.count + 1, dtype=torch.float32)
-        decay = 1.0 - t ** (-_DECAY_RATE)
-        keep = 1.0 - decay
+        decay, keep = _factored_decay(state.count)
         out, v_row, v_col, v = {}, {}, {}, {}
         for k, u in updates.items():
             g = _jax_view(k, u)
@@ -326,13 +338,91 @@ def scale(factor: float) -> GradientTransformation:
     return GradientTransformation(lambda params: (), update)
 
 
+class AdafactorState(NamedTuple):
+    """:func:`adafactor`'s chain, a field a stage in the chain's order: each
+    stage's transformation there, its state in the chain's state (``()``
+    where the stage keeps none). A checkpoint keeps it as a tuple."""
+    factored_rms: Any
+    block_rms: Any
+    learning_rate: Any
+    param_block_rms: Any
+    sign: Any
+
+
 def adafactor(lr: Schedule) -> GradientTransformation:
     """``optax.adafactor(learning_rate=lr, multiply_by_parameter_scale=True,
     clipping_threshold=1.0)`` with its other defaults (no momentum, no
-    weight decay)."""
-    return chain(scale_by_factored_rms(), clip_by_block_rms(_CLIPPING_THRESHOLD),
-                 scale_by_learning_rate(lr, flip_sign=False),
-                 scale_by_param_block_rms(_MIN_PARAM_SCALE), scale(-1.0))
+    weight decay); its state an :class:`AdafactorState`."""
+    stages = chain(*AdafactorState(
+        factored_rms=scale_by_factored_rms(), block_rms=clip_by_block_rms(_CLIPPING_THRESHOLD),
+        learning_rate=scale_by_learning_rate(lr, flip_sign=False),
+        param_block_rms=scale_by_param_block_rms(_MIN_PARAM_SCALE), sign=scale(-1.0)))
+
+    def update(updates: Tree, state: AdafactorState, params: Optional[Tree] = None):
+        updates, state = stages.update(updates, state, params)
+        return updates, AdafactorState(*state)
+
+    return GradientTransformation(lambda params: AdafactorState(*stages.init(params)), update)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def clipped_adafactor(clip: float, lr: Schedule) -> GradientTransformation:
+    """``chain(clip_by_global_norm(clip), adafactor(lr))``, its state and its
+    results, routed on the tree it is handed:
+
+    - float32 leaves on the card take the fused update K7
+      (ops/adafactor_kernel.py): four launches, no full-size temporary. It
+      writes the updates into the gradients' buffers and returns them, and
+      updates the statistics in the state's own tensors, in place. A
+      gradient that is not contiguous, or whose buffer another leaf's
+      gradient shares, is copied first. Sums run in another order than the
+      chain's, and the factored statistics scale the sums of g^2 by the
+      clip's scale squared where the chain sums the clipped squares; each
+      update counts ``train.adafactor_fused`` (core/profiling.py).
+    - Leaves on the CPU, and leaves on the card in another dtype (bfloat16
+      masters), take the chain. There optax rounds the statistics in the
+      leaf's dtype, a rounding the kernel does not re-derive.
+    - A tree of mixed devices or dtypes raises.
+    """
+    plain = chain(clip_by_global_norm(clip), adafactor(lr))
+
+    def update(updates: Tree, state, params: Optional[Tree] = None):
+        if params is None:
+            raise ValueError("params required for adafactor")
+        kinds = {(_on_card(t), t.dtype) for tree in (updates, params) for t in tree.values()}
+        if len(kinds) > 1:
+            raise ValueError(f"adafactor takes a tree on one device in one dtype, got "
+                             f"{sorted((('card' if c else 'host'), str(d)) for c, d in kinds)}")
+        if kinds != {(True, torch.float32)}:
+            return plain.update(updates, state, params)
+        from lako_tpu_torch.ops.adafactor_kernel import fused_adafactor_update
+
+        clip_state, inner = state
+        fact = inner.factored_rms
+        decay, keep = _factored_decay(fact.count)
+        step = _learning_rate(lr, inner.learning_rate)
+        paths, grads, seen = list(updates), [], set()
+        for g in updates.values():
+            if not g.is_contiguous():
+                g = g.contiguous()
+            elif g.data_ptr() in seen:
+                g = g.clone()
+            seen.add(g.data_ptr())
+            grads.append(g)
+        fused_adafactor_update(paths, grads, [params[k] for k in paths],
+                               [fact.v_row[k] for k in paths], [fact.v_col[k] for k in paths],
+                               [fact.v[k] for k in paths], clip=clip,
+                               lr=_scalar(step, torch.float32), decay=float(decay),
+                               keep=float(keep))
+        profiling.count("train.adafactor_fused")
+        inner = inner._replace(factored_rms=fact._replace(count=fact.count + 1),
+                               learning_rate=inner.learning_rate + 1)
+        return dict(zip(paths, grads)), (clip_state, inner)
+
+    return GradientTransformation(plain.init, update)
 
 
 def chain(*txs: GradientTransformation) -> GradientTransformation:
@@ -400,7 +490,7 @@ def make_optimizer(cfg: OptimConfig) -> GradientTransformation:
         # cfg.weight_decay is not applied: optax applies adafactor's decay
         # rate after the learning rate (rate x p a step), so AdamW's 0.1
         # would shrink every parameter by 10% a step (the JAX package's note)
-        tx = chain(clip_by_global_norm(cfg.clip), adafactor(lr))
+        tx = clipped_adafactor(cfg.clip, lr)
         return multi_steps(tx, cfg.accumulation_steps) if cfg.accumulation_steps > 1 else tx
     steps = [clip_by_global_norm(cfg.clip)]
     if cfg.optim == "adam":

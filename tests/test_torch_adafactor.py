@@ -7,10 +7,18 @@ gradients through both chains, on a leaf set with square, wide, tall,
 the factored axes must follow the JAX leaf) and on a t5 param tree wide
 enough to factor: the factored statistics within rtol 1e-6 of optax's and
 the parameters within rtol 1e-5 (summation orders differ between XLA and
-torch). The state round-trips bitwise through ``opt_state.pt``, and a full
-resume through ``train_reader`` continues as the uninterrupted run does,
-bitwise.
+torch). The same holds for the route float32 trees on the card take, the
+fused update K7 (ops/adafactor_kernel.py), through its plain version (the
+card's route taken on CPU tensors by patching ``optim._on_card``). K7's
+plan follows ``_factored_dims`` on every leaf of a t5-3b-shaped tree, built
+from shapes alone; the fused route writes into the caller's buffers, a
+mixed tree raises, and bf16 masters keep the chain. The fused route's
+state is the chain's, node for node. The state round-trips
+bitwise through ``opt_state.pt``, and a full resume through
+``train_reader`` continues as the uninterrupted run does, bitwise.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -23,8 +31,11 @@ from lako_tpu.core import config as jax_config
 from lako_tpu.models.t5.model import FiDT5 as JaxFiDT5
 from lako_tpu.train import optim as jax_optim
 from lako_tpu_torch.core import config as port_config
+from lako_tpu_torch.core import profiling
 from lako_tpu_torch.core.checkpoint import flatten_tree, load_checkpoint, save_checkpoint
-from lako_tpu_torch.models.t5 import init_fid_t5, jax_param_paths
+from lako_tpu_torch.models.t5 import FiDT5, init_fid_t5, jax_param_paths
+from lako_tpu_torch.ops import _build
+from lako_tpu_torch.ops import adafactor_kernel as k7
 from lako_tpu_torch.train import optim
 from lako_tpu_torch.train import reader as port_reader
 from lako_tpu_torch.train.reader import train_reader
@@ -80,7 +91,9 @@ def _factored_states(state):
 
 def _run_both(jax_params, accumulation, steps=3, seed=0):
     """Both chains over ``steps`` updates of the same seeded gradients;
-    returns (jax params, jax FactoredState, port params, port FactoredState)."""
+    returns (jax params, jax FactoredState, port params, port FactoredState).
+    The port's updates are applied to its parameters from the dict the
+    update returns."""
     cfg = dict(OPTIM, accumulation_steps=accumulation)
     jtx = jax_optim._build_optimizer(jax_config.OptimConfig(**cfg))
     tx = optim.make_optimizer(port_config.OptimConfig(**cfg))
@@ -122,11 +135,30 @@ def _leaf_params():
                       for k, s in LEAVES.items()})
 
 
-@pytest.mark.parametrize("tree,accumulation", [("leaves", 1), ("leaves", 2), ("t5", 1),
-                                               ("t5", 2)])
-def test_adafactor_matches_optax(tree, accumulation):
+def _card_route(monkeypatch):
+    """Send CPU trees down the route of float32 trees on the card: the fused
+    update's wrapper, which takes its plain version on CPU tensors."""
+    monkeypatch.setattr(optim, "_on_card", lambda t: True)
+
+
+CASES = [(tree, accumulation, route) for route in ("chain", "fused")
+         for tree, accumulation in (("leaves", 1), ("leaves", 2), ("t5", 1), ("t5", 2))]
+
+
+@pytest.mark.parametrize("tree,accumulation,route", [
+    pytest.param(*case, id=f"{case[0]}-{case[1]}" + ("-fused" if case[2] == "fused" else ""))
+    for case in CASES])
+def test_adafactor_matches_optax(tree, accumulation, route, monkeypatch):
+    """The chain (the CPU's route) and the fused update through its plain
+    version (the route of float32 leaves on the card) against optax."""
+    if route == "fused":
+        _card_route(monkeypatch)
     jax_params = _leaf_params() if tree == "leaves" else _t5_params()
+    start = profiling.now()
     jparams, jfact, params, fact = _run_both(jax_params, accumulation)
+    fused = sum(n for t, name, n in profiling.snapshot()["counts"]
+                if name == "train.adafactor_fused" and t >= start)
+    assert fused == (3 if route == "fused" else 0)
     assert fact.count == int(jfact.count) == 3
     jflat = _flat(jax.tree_util.tree_map(np.asarray, jparams))
     assert set(params) == set(jflat)
@@ -242,3 +274,192 @@ def test_adafactor_ignores_weight_decay_and_reads_jax_paths():
         upd, _ = tx.update(zero, tx.init(params), params)
         moved = [k for k, u in upd.items() if not torch.equal(u, torch.zeros_like(u))]
         assert (name == "adamw") == bool(moved), name
+
+
+def _t5_3b_shapes():
+    """{JAX path: the port's shape} of every t5-3b parameter, from a model on
+    the meta device: shapes only, no weights."""
+    with torch.device("meta"):
+        model = FiDT5(port_config.t5_config_for_size("3b"))
+    paths = jax_param_paths(model)
+    return {paths[name]: tuple(p.shape) for name, p in model.named_parameters()}
+
+
+def test_fused_plan_follows_factored_dims_on_t5_3b():
+    """K7's plan of t5-3b's 509 leaves: each leaf factored where
+    ``_factored_dims`` of its JAX shape says so, v_row's mean over the port
+    axis that the JAX leaf's largest axis (``d0``) is, the statistics shaped
+    as ``scale_by_factored_rms`` makes them, tiles and scratch laid out
+    without overlap, the scratch under 1% of the parameters and gradients."""
+    shapes = _t5_3b_shapes()
+    assert len(shapes) == 509
+    paths = tuple(shapes)
+    pl = k7.plan(paths, tuple(shapes.values()))
+    f = {name: i for i, name in enumerate(k7.LEAF_FIELDS)}
+    with torch.device("meta"):
+        fact = optim.scale_by_factored_rms().init({k: torch.empty(s) for k, s in shapes.items()})
+    n_factored, tile, fin = 0, 0, 0
+    for i, path in enumerate(paths):
+        shape, row = shapes[path], pl.table[i]
+        transposed = path.endswith("/kernel") and len(shape) == 2
+        jax_shape = shape[::-1] if transposed else shape
+        dims = optim._factored_dims(jax_shape, 128)
+        flags = int(row[f["flags"]])
+        assert bool(flags & k7.FLAG_FACTORED) == (dims is not None), path
+        assert pl.state_shapes[i] == (tuple(fact.v_row[path].shape),
+                                     tuple(fact.v_col[path].shape),
+                                     tuple(fact.v[path].shape)), path
+        assert row[f["tile0"]] == pl.first[0, i] == tile and row[f["fin0"]] == pl.first[1, i]
+        assert row[f["fin0"]] == fin
+        tiles = -(-int(row[f["rows"]]) // 256) * int(row[f["tiles_c"]])
+        tile += tiles
+        if dims is None:
+            assert (row[f["rows"]], row[f["cols"]]) == (-(-math.prod(shape) // 256), 256)
+            continue
+        n_factored += 1
+        d1, d0 = dims
+        port_d0 = 1 - d0 if transposed else d0
+        assert bool(flags & k7.FLAG_ROW_STAT) == (port_d0 == 1), path
+        assert (row[f["rows"]], row[f["cols"]]) == shape
+        # v_row runs along the port axis that JAX's d1 is; its mean over d0
+        assert fact.v_row[path].shape[0] == shape[1 - port_d0] == jax_shape[d1], path
+        assert row[f["rpart"]] < row[f["cpart"]] < row[f["frow"]] < row[f["fcol"]]
+        fin += 1 + -(-shape[port_d0] // k7.FIN_CHUNK)
+    assert (pl.n_tiles, pl.n_fin) == (tile, fin)
+    assert n_factored == 1 + 24 * 6 + 24 * 10      # embedding, encoder, decoder blocks
+    offsets = pl.table[:, [f["rpart"], f["cpart"], f["frow"], f["fcol"]]]
+    ends = np.concatenate([offsets[:, 1:], np.roll(offsets[:, :1], -1, axis=0)], axis=1)
+    factored = (pl.table[:, f["flags"]] & k7.FLAG_FACTORED) != 0
+    ends[np.flatnonzero(factored)[-1], 3] = pl.scratch
+    assert (offsets[factored] <= ends[factored]).all()
+    elements = sum(math.prod(s) for s in shapes.values())
+    assert pl.scratch * 4 < 0.01 * 8 * elements
+
+
+def test_fused_route_updates_in_the_callers_buffers(monkeypatch):
+    """The fused route returns the gradients' own buffers holding the
+    updates and updates the statistics' tensors in place; a gradient that
+    is not contiguous, or shares another's buffer, is copied first, with the
+    same result as the chain's."""
+    _card_route(monkeypatch)
+    params = {k: _port(k, v) for k, v in _flat(_leaf_params()).items()}
+    tx = optim.clipped_adafactor(1.0, 1e-2)
+    chain = optim.chain(optim.clip_by_global_norm(1.0), optim.adafactor(1e-2))
+    state, chain_state = tx.init(params), chain.init(params)
+    g = torch.Generator().manual_seed(3)
+    grads = {k: torch.randn(p.shape, generator=g) for k, p in params.items()}
+    grads["sq/kernel"] = torch.randn(256, 256, generator=g).t()          # not contiguous
+    want, want_state = chain.update({k: v.clone() for k, v in grads.items()}, chain_state, params)
+    (fact0,) = _factored_states(state)
+    v_rows = dict(fact0.v_row)
+    upd, state = tx.update(grads, state, params)
+    (fact,) = _factored_states(state)
+    (want_fact,) = _factored_states(want_state)
+    for k, u in upd.items():
+        assert (u is grads[k]) == (k != "sq/kernel"), k
+        assert fact.v_row[k] is v_rows[k], k
+        # the global norm's sum runs in another order than the chain's
+        torch.testing.assert_close(u, want[k], rtol=PARAM_RTOL, atol=1e-9)
+        torch.testing.assert_close(fact.v_col[k], want_fact.v_col[k], rtol=STATE_RTOL, atol=0)
+    # two leaves handed one buffer: the second is copied, both get the update
+    shared = torch.randn(300, generator=g)
+    tree = {"a/weight": torch.zeros(300), "b/weight": torch.ones(300)}
+    tx2 = optim.clipped_adafactor(1.0, 1e-2)
+    upd, _ = tx2.update({"a/weight": shared, "b/weight": shared}, tx2.init(tree), tree)
+    assert upd["a/weight"] is shared and upd["b/weight"] is not shared
+
+
+def _node_types(tree):
+    """The type of every tuple node of a state, depth first."""
+    if isinstance(tree, tuple):
+        return [type(tree)] + [t for child in tree for t in _node_types(child)]
+    return []
+
+
+def test_fused_route_keeps_the_chains_state(monkeypatch):
+    """After two updates the fused route's state is the chain's: the same
+    node types (the outer chain's tuple, adafactor's AdafactorState of
+    named stages, the FactoredState), the same checkpoint keys, the same
+    counts, statistics within STATE_RTOL."""
+    params = {k: _port(k, v) for k, v in _flat(_leaf_params()).items()}
+    g = torch.Generator().manual_seed(4)
+    grads = [{k: torch.randn(p.shape, generator=g) for k, p in params.items()}
+             for _ in range(2)]
+    states = {}
+    for route in ("chain", "fused"):
+        if route == "fused":
+            _card_route(monkeypatch)
+        tx = optim.clipped_adafactor(1.0, 1e-2)
+        mine = {k: p.clone() for k, p in params.items()}
+        state = tx.init(mine)
+        for gr in grads:
+            upd, state = tx.update({k: v.clone() for k, v in gr.items()}, state, mine)
+            optim.apply_updates(mine, upd)
+        states[route] = state
+    chain, fused = states["chain"], states["fused"]
+    assert _node_types(fused) == _node_types(chain)
+    assert isinstance(fused[1], optim.AdafactorState)
+    assert fused[1].factored_rms.count == fused[1].learning_rate == 2
+    fc, ff = flatten_tree(chain), flatten_tree(fused)
+    assert ff.keys() == fc.keys()
+    for k, v in ff.items():
+        if isinstance(v, torch.Tensor):
+            torch.testing.assert_close(v, fc[k], rtol=STATE_RTOL, atol=0, msg=k)
+        else:
+            assert v == fc[k], k
+
+
+def test_mixed_tree_raises(monkeypatch):
+    """A tree of float32 and bfloat16 leaves raises, on either route."""
+    params = {"a/weight": torch.zeros(300), "b/weight": torch.zeros(300, dtype=torch.bfloat16)}
+    grads = {k: torch.ones_like(p) for k, p in params.items()}
+    for patch in (False, True):
+        if patch:
+            _card_route(monkeypatch)
+        tx = optim.make_optimizer(port_config.OptimConfig(**OPTIM))
+        with pytest.raises(ValueError, match="one device in one dtype"):
+            tx.update(grads, tx.init(params), params)
+    with pytest.raises(ValueError, match="float32"):
+        k7.leaf_table(k7.plan(("a/weight",), ((300,),)), [torch.zeros(300, dtype=torch.bfloat16)],
+                      [torch.zeros(300)], [torch.zeros(1)], [torch.zeros(1)], [torch.zeros(300)])
+
+
+def test_bf16_masters_keep_the_chain(monkeypatch):
+    """bfloat16 masters on the card's route take the chain, bitwise, and
+    count no fused update."""
+    _card_route(monkeypatch)
+    params = {k: _port(k, v).to(torch.bfloat16) for k, v in _flat(_leaf_params()).items()}
+    tx = optim.clipped_adafactor(1.0, 1e-2)
+    chain = optim.chain(optim.clip_by_global_norm(1.0), optim.adafactor(1e-2))
+    state, chain_state = tx.init(params), chain.init(params)
+    g = torch.Generator().manual_seed(5)
+    start = profiling.now()
+    for _ in range(2):
+        grads = {k: torch.randn(p.shape, generator=g).to(torch.bfloat16) for k, p in params.items()}
+        upd, state = tx.update(grads, state, params)
+        want, chain_state = chain.update(grads, chain_state, params)
+        assert all(torch.equal(upd[k], want[k]) and upd[k].dtype == torch.bfloat16 for k in upd)
+    assert flatten_tree(state).keys() == flatten_tree(chain_state).keys()
+    assert all(torch.equal(v, flatten_tree(chain_state)[k]) if isinstance(v, torch.Tensor)
+               else v == flatten_tree(chain_state)[k] for k, v in flatten_tree(state).items())
+    assert not [n for t, name, n in profiling.snapshot()["counts"]
+                if name == "train.adafactor_fused" and t >= start]
+
+
+def test_k7_builds_as_its_own_library(monkeypatch, tmp_path):
+    """K7 is built into a library of its own, from adafactor.cu and
+    common.cu, so a training run with Adafactor compiles nothing else;
+    every other .cu goes into the kernels' library, each file into one."""
+    cu = lambda lib: [s.name for s in _build._sources(lib) if s.suffix == ".cu"]
+    assert cu("adafactor") == ["common.cu", "adafactor.cu"]
+    others = sorted(s.name for s in _build.CSRC_DIR.glob("*.cu")
+                    if s.name not in ("common.cu", "adafactor.cu"))
+    assert others and cu("kernels") == ["common.cu", *others]
+    assert _build.library_path("adafactor").name.startswith("liblako_adafactor-")
+    assert _build.library_path("kernels").name.startswith("liblako_kernels-")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found") as err:
+        _build.compile_library(tmp_path / "k7.so", "adafactor")
+    commands = str(err.value)
+    assert "adafactor.cu" in commands and not any(name in commands for name in others)

@@ -736,6 +736,81 @@ def test_adam8_transform_launches_k5_once(cuda_device):
         state = new
 
 
+# K7's leaves (the port's shapes): square, wide and tall kernels (a width
+# that is no multiple of 4 or of 256), a 1-D leaf, a kernel and an
+# embedding below the factoring size, a large embedding, a factored leaf of
+# odd widths
+K7_LEAVES = {"sq/kernel": (256, 256), "wide/kernel": (384, 130), "tall/kernel": (300, 520),
+             "ln/weight": (300,), "small/kernel": (200, 64), "rel/embedding": (32, 32),
+             "emb/embedding": (1000, 384), "odd/embedding": (129, 513)}
+
+
+@pytest.mark.parametrize("grad_scale", [1e-2, 1e-5])     # over and under the clip's norm
+def test_fused_adafactor_matches_plain(cuda_device, grad_scale):
+    """clipped_adafactor on float32 leaves on the card: K7, 4 launches an
+    update, the updates in the gradients' buffers (one of them a view 4
+    bytes past a 16-byte boundary), against the plain version driven the
+    same way: statistics within rtol 1e-6, parameters within rtol 1e-5
+    (sums run in another order, and the statistics apply the clip's scale
+    to sums of g^2); a second run bitwise equal."""
+    from unittest import mock
+
+    from lako_tpu_torch.ops import adafactor_kernel as k7
+    from lako_tpu_torch.train import optim
+
+    def run():
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        params = {k: torch.randn(s, generator=gen, device=cuda_device) * 0.05
+                  for k, s in K7_LEAVES.items()}
+        tx = optim.clipped_adafactor(1.0, 1e-2)
+        state = tx.init(params)
+        for step in range(3):
+            grads = {k: torch.randn(s, generator=gen, device=cuda_device) * grad_scale
+                     for k, s in K7_LEAVES.items()}
+            n = grads["tall/kernel"].numel()
+            grads["tall/kernel"] = (torch.empty(n + 1, device=cuda_device)[1:]
+                                    .view(300, 520).copy_(grads["tall/kernel"]))
+            upd, state = tx.update(grads, state, params)
+            assert all(upd[k] is grads[k] for k in grads)
+            optim.apply_updates(params, upd)
+        torch.cuda.synchronize()
+        return params, state[1].factored_rms
+
+    before = k7.fused_adafactor_update.launches
+    params, fact = run()
+    assert k7.fused_adafactor_update.launches == before + 12
+    again, fact_b = run()
+    assert all(torch.equal(params[k], again[k]) for k in params)
+    with mock.patch.object(k7, "fused_adafactor_update", k7.fused_adafactor_update_reference):
+        plain, fact_p = run()
+    for name in ("v_row", "v_col", "v"):
+        for k, got in getattr(fact, name).items():
+            assert torch.equal(got, getattr(fact_b, name)[k]), (name, k)
+            torch.testing.assert_close(got, getattr(fact_p, name)[k], rtol=1e-6, atol=0,
+                                       msg=f"{name} {k}")
+    for k, p in params.items():
+        torch.testing.assert_close(p, plain[k], rtol=1e-5, atol=1e-7, msg=k)
+
+
+def test_fused_adafactor_wrapper_refuses_what_it_cannot_take(cuda_device):
+    """K7's wrapper launches or raises: a bfloat16, a non-contiguous or a
+    misshapen CUDA tensor raises."""
+    from lako_tpu_torch.ops import adafactor_kernel as k7
+
+    def call(g, p, vr, vc, v):
+        k7.fused_adafactor_update(["a/kernel"], [g], [p], [vr], [vc], [v], clip=1.0, lr=1e-3,
+                                  decay=0.5, keep=0.5)
+
+    dev = cuda_device
+    g, p = torch.ones(256, 128, device=dev), torch.ones(256, 128, device=dev)
+    vr, vc, v = torch.zeros(128, device=dev), torch.zeros(256, device=dev), torch.zeros(1, device=dev)
+    call(g, p, vr, vc, v)
+    for bad in ((g.bfloat16(), p, vr, vc, v), (torch.ones(128, 256, device=dev).t(), p, vr, vc, v),
+                (g, p, torch.zeros(256, device=dev), vc, v)):
+        with pytest.raises(ValueError):
+            call(*bad)
+
+
 def test_adamw8bit_train_step_on_the_fused_route(cuda_device):
     """A tiny train step (f32, remat) on the whole-block route with AdamW8bit:
     K4 twice a layer, K5 once a step over every parameter tensor, and the same parameters as
