@@ -105,7 +105,7 @@ class BeamEngine:
                  length_penalty: float = 1.0, self_attn_impl: str = "allslots",
                  select_impl: str = "auto", select_block: int = 251):
         cfg = model.config
-        if not engine_supported(cfg):
+        if not engine_supported(cfg, beam=True):
             raise ValueError(
                 "BeamEngine requires homogeneous decoder layers "
                 "(cross_attention_stride unset); use models.t5.beam instead")

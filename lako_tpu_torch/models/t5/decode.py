@@ -3,13 +3,14 @@
 Counterpart of lako_tpu/models/t5/decode.py. ``greedy_generate`` is the
 layer-unrolled path: the model's own decoder blocks, one incremental step at
 a time (``FiDT5.decode_step``), with per-layer self-attention caches and the
-cross K/V projected once. It is the path for FiDO decoders
-(``cross_attention_stride``), token elimination (``keep_tokens``) and
-``early_exit``, a host loop that stops once every row has emitted EOS.
+cross K/V projected once. It is the path for token elimination
+(``keep_tokens``), ``early_exit`` (a host loop that stops once every row has
+emitted EOS) and beam search over FiDO decoders (``cross_attention_stride``).
 ``make_best_generate_fn`` dispatches like the JAX function of the same
 name: the stacked-weight engines (models/t5/engine.py greedy,
 models/t5/beam_engine.py beam) where the model allows, the layer-unrolled
-paths (this module, models/t5/beam.py) otherwise.
+paths (this module, models/t5/beam.py) otherwise. Unlike the JAX package,
+the greedy engine also runs FiDO decoders.
 
 Step 0 runs on its own and returns the (B, layers, heads, N·L) pre-softmax
 cross-attention logits when asked: the reference stores only the first
@@ -138,7 +139,7 @@ def make_best_generate_fn(
             get_logger().warning(
                 "beam search ignores early_exit/chunk_size/fused_cross (greedy-only "
                 "knobs); decoding the full %d steps", max_length - 1)
-        beam_ok = engine_supported(model.config)
+        beam_ok = engine_supported(model.config, beam=True)
         if backend == "engine" and not beam_ok:
             raise ValueError(
                 "decode_backend='engine' but the beam engine does not "
@@ -166,12 +167,11 @@ def make_best_generate_fn(
         get_logger().warning(
             "self_attn_impl=%r only affects beam search (num_beams>1); "
             "greedy decode ignores it", self_attn_impl)
-    engine_ok = (engine_supported(model.config) and keep_tokens is None
-                 and not early_exit)
+    engine_ok = keep_tokens is None and not early_exit
     if backend == "engine" and not engine_ok:
         raise ValueError(
             "decode_backend='engine' but the engine does not support this "
-            "configuration (FiDO stride / keep_tokens / early_exit)")
+            "configuration (keep_tokens / early_exit)")
     if backend != "flax" and engine_ok:
         return make_engine_generate_fn(
             model, max_length=max_length,
@@ -190,16 +190,12 @@ def make_generate_and_score_fn(model: FiDT5, signal_cfg, max_length: int = 50,
     (input_ids, mask, fact_spans) → (tokens, fact_scores (B, n_context)).
 
     Only the tokens and n_context floats per example leave the device, never
-    the (B, layers, heads, N·L) logits. The engine route where the model
-    allows it, as :func:`make_best_generate_fn` dispatches; the
-    layer-unrolled ``greedy_generate`` otherwise."""
+    the (B, cross layers, heads, N·L) logits. The greedy engine under
+    "auto" and "engine" (FiDO decoders included), the layer-unrolled
+    ``greedy_generate`` under "flax"."""
     from lako_tpu_torch.signal.aggregate import aggregate_fact_scores_device
 
-    if backend == "engine" and not engine_supported(model.config):
-        raise ValueError(
-            "decode_backend='engine' but the engine does not support this "
-            "configuration (FiDO cross_attention_stride)")
-    if backend != "flax" and engine_supported(model.config):
+    if backend != "flax":
         gen = make_best_generate_fn(
             model, max_length=max_length, collect_cross_scores=True, backend=backend,
             kv_dtype=kv_dtype, weights_dtype=weights_dtype, chunk_size=chunk_size)

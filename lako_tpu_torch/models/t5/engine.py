@@ -8,11 +8,19 @@ hoisted out of the token loop: the cross-attention K/V projection of the
 encoder states, the self-attention relative-position rows and the cross
 key-mask bias. Each step then runs every layer on one token per row.
 
-Layouts are the JAX engine's: the cross K/V are ``(layers, B, hk, d, K)``
-with the key axis minor, the layout the int8 kernel reads, and the
-self-attention cache is ``(layers, B, h, d, S)`` (``self_cache_layout="ds"``)
-or ``(layers, B, h, S, d)`` (``"sd"``). The cache is written in place, one
-column per layer per step, after that layer has read it.
+FiDO decoders (arXiv 2212.08153; ``cross_attention_stride``,
+``multiquery_cross_attention``) run here too. The cross-attention weights and
+K/V are stacked over the layers that cross-attend only, slot ``j`` holding
+the ``j``-th such layer (``DecodeEngine.cross_slot``). Which layers skip
+cross-attention is decided in Python when a step is traced, so a captured
+step launches nothing for them; a homogeneous decoder's step is unchanged.
+
+Layouts are the JAX engine's: the cross K/V are ``(cross layers, B, hk, d,
+K)`` with the key axis minor, the layout the int8 kernel reads (hk is 1
+under multi-query cross-attention), and the self-attention cache is
+``(layers, B, h, d, S)`` (``self_cache_layout="ds"``) or ``(layers, B, h, S,
+d)`` (``"sd"``). The cache is written in place, one column per layer per
+step, after that layer has read it.
 
 ``kv_dtype="int8"`` stores the cross K/V as symmetric int8 with one scale per
 (layer, row, head, channel). With ``fused_cross=True`` each step after the
@@ -40,7 +48,9 @@ early (the JAX engine's ``_generate_chunked``).
 Each generate call records a stream span ``engine.prefill`` (encoder, cross
 K/V, step 0) and one ``engine.replay`` a chunk, whose host time is the
 graph's launch, and counts ``engine.captures`` and ``engine.replays``
-(core/profiling.py).
+(core/profiling.py), and at its prefill ``engine.cross_kv_bytes`` (the bytes
+of cross K/V loaded into the batch's buffers) and ``engine.cross_layers``
+(the decoder layers whose cross-attention a step runs).
 """
 
 from __future__ import annotations
@@ -94,17 +104,18 @@ Weight = Union[torch.Tensor, Quantized]
 
 
 class StackedDecoder(NamedTuple):
-    """Decoder weights stacked on a leading (num_decoder_layers,) axis; matmul
-    weights are ``(in, out)`` so a step computes ``x @ w``. Under int8
-    weights the per-step matmul weights, the embedding and an untied lm_head
-    are :class:`Quantized`."""
+    """Decoder weights stacked on a leading (num_decoder_layers,) axis, the
+    cross-attention's on a leading (cross layers,) axis; matmul weights are
+    ``(in, out)`` so a step computes ``x @ w``. Under int8 weights the
+    per-step matmul weights, the embedding and an untied lm_head are
+    :class:`Quantized`."""
 
     ln_self: torch.Tensor      # (l, H)
     wqkv_self: Weight          # (l, H, 3*h*d): q/k/v fused into one matmul
     wo_self: Weight            # (l, h*d, H)
-    ln_cross: torch.Tensor
+    ln_cross: torch.Tensor     # (c, H): the c layers that cross-attend
     wq_cross: Weight
-    wk_cross: torch.Tensor     # (l, H, hk*d)
+    wk_cross: torch.Tensor     # (c, H, hk*d)
     wv_cross: torch.Tensor
     wo_cross: Weight
     ln_mlp: torch.Tensor
@@ -118,9 +129,11 @@ class StackedDecoder(NamedTuple):
     relpos: torch.Tensor       # (buckets, h) f32
 
 
-def engine_supported(cfg: T5Config) -> bool:
-    """True when every decoder layer cross-attends (no FiDO stride)."""
-    return all(cfg.has_cross_attention(i) for i in range(cfg.num_decoder_layers))
+def engine_supported(cfg: T5Config, beam: bool = False) -> bool:
+    """True when the stacked engine runs ``cfg``: the greedy engine runs any
+    decoder, FiDO's layer-sparse cross-attention included; the beam engine
+    (``beam``) needs every decoder layer to cross-attend."""
+    return not beam or all(cfg.has_cross_attention(i) for i in range(cfg.num_decoder_layers))
 
 
 def _quantize(x: torch.Tensor, dim: int) -> Quantized:
@@ -192,13 +205,14 @@ def stack_decoder_params(model: FiDT5, dtype: torch.dtype,
     cfg = model.config
     t5 = model.t5
     blocks = t5.decoder.blocks
+    cross = [b for b in blocks if b.has_cross]
     int8 = weights_dtype == "int8"
 
-    def stack(fn):
-        return torch.stack([fn(b).to(dtype) for b in blocks]).contiguous()
+    def stack(fn, over=blocks):
+        return torch.stack([fn(b).to(dtype) for b in over]).contiguous()
 
-    def qstack(fn):
-        w = stack(fn)
+    def qstack(fn, over=blocks):
+        w = stack(fn, over)
         return _quantize_weight(w) if int8 else w
 
     def w(dense):
@@ -216,11 +230,11 @@ def stack_decoder_params(model: FiDT5, dtype: torch.dtype,
         wqkv_self=qstack(lambda b: torch.cat(
             [w(b.self_attn.q), w(b.self_attn.k), w(b.self_attn.v)], dim=-1)),
         wo_self=qstack(lambda b: w(b.self_attn.o)),
-        ln_cross=stack(lambda b: b.ln_cross.weight),
-        wq_cross=qstack(lambda b: w(b.cross_attn.q)),
-        wk_cross=stack(lambda b: w(b.cross_attn.k)),
-        wv_cross=stack(lambda b: w(b.cross_attn.v)),
-        wo_cross=qstack(lambda b: w(b.cross_attn.o)),
+        ln_cross=stack(lambda b: b.ln_cross.weight, cross),
+        wq_cross=qstack(lambda b: w(b.cross_attn.q), cross),
+        wk_cross=stack(lambda b: w(b.cross_attn.k), cross),
+        wv_cross=stack(lambda b: w(b.cross_attn.v), cross),
+        wo_cross=qstack(lambda b: w(b.cross_attn.o), cross),
         ln_mlp=stack(lambda b: b.ln_mlp.weight),
         wi=None if gated else qstack(lambda b: w(b.mlp.wi)),
         wi_0=qstack(lambda b: w(b.mlp.wi_0)) if gated else None,
@@ -298,6 +312,8 @@ class _Batch:
     def __init__(self, caches, cross_kv, cross_bias, tok, done):
         self.caches = caches          # (sk, sv)
         self.cross_kv = cross_kv      # (ck, cv), native or Quantized
+        self.cross_kv_bytes = sum(t.numel() * t.element_size() for c in cross_kv
+                                  for t in (c if isinstance(c, Quantized) else (c,)))
         self.cross_bias = cross_bias  # (B, 1, K) f32
         self.tok = tok                # (B,) the previous step's tokens
         self.done = done              # (B,) bool
@@ -346,10 +362,6 @@ class DecodeEngine:
                  self_cache_layout: str = "ds",   # "ds" (B,h,d,S) | "sd" (B,h,S,d)
                  cuda_graphs: bool = True):
         cfg = model.config
-        if not engine_supported(cfg):
-            raise ValueError(
-                "DecodeEngine requires homogeneous decoder layers "
-                "(cross_attention_stride unset); use models.t5.decode instead")
         if kv_dtype not in ("native", "int8", "int8mxu"):
             raise ValueError(f"kv_dtype must be native|int8|int8mxu, got {kv_dtype!r}")
         if weights_dtype not in ("native", "int8"):
@@ -388,6 +400,9 @@ class DecodeEngine:
         self.chunk_size = chunk_size
         self.graphed = cuda_graphs and device.type == "cuda"
         self.dtype = model.dtype
+        # decoder layer -> its slot in the cross-attention stacks
+        self.cross_slot = {i: j for j, i in enumerate(
+            i for i in range(cfg.num_decoder_layers) if cfg.has_cross_attention(i))}
         self.sd = stack_decoder_params(model, self.dtype, weights_dtype)
         self.relpos_rows = _decode_relpos_rows(self.sd.relpos, cfg, self.steps)
         self._batches: Dict[Tuple[int, int], _Batch] = {}
@@ -400,14 +415,14 @@ class DecodeEngine:
     # ---- setup: encoder + hoisted state ------------------------------------
 
     def _project_cross_kv(self, enc: torch.Tensor):
-        """enc (B,K,H) → cross K/V stacked (l,B,hk,d,K), key axis minor."""
+        """enc (B,K,H) → cross K/V stacked (c,B,hk,d,K), key axis minor."""
         d = self.cfg.d_kv
         B, K, _ = enc.shape
 
         def proj(w):
-            kv = torch.einsum("bkh,lhe->lbke", enc, w)           # (l,B,K,hk*d)
+            kv = torch.einsum("bkh,lhe->lbke", enc, w)           # (c,B,K,hk*d)
             kv = kv.reshape(kv.shape[0], B, K, kv.shape[-1] // d, d)
-            return kv.permute(0, 1, 3, 4, 2).contiguous()       # (l,B,hk,d,K)
+            return kv.permute(0, 1, 3, 4, 2).contiguous()       # (c,B,hk,d,K)
 
         ck, cv = proj(self.sd.wk_cross), proj(self.sd.wv_cross)
         if self.kv_dtype in ("int8", "int8mxu"):
@@ -437,11 +452,11 @@ class DecodeEngine:
 
     # ---- one decode step ---------------------------------------------------
 
-    def _cross_attention(self, i, qc, st: _Batch, collect):
-        """One layer's cross-attention for one step. qc (B,h,d) → (out (B,h,d)
-        in dtype, logits (B,h,K) f32 | None)."""
+    def _cross_attention(self, j, qc, st: _Batch, collect):
+        """Cross-attention slot ``j``'s for one step. qc (B,h,d) → (out
+        (B,h,d) in dtype, logits (B,h,K) f32 | None)."""
         dtype = self.dtype
-        ck, cv = (_layer(c, i) for c in st.cross_kv)      # (B, hk, d, K)
+        ck, cv = (_layer(c, j) for c in st.cross_kv)      # (B, hk, d, K)
         cross_bias = st.cross_bias
         int8 = self.kv_dtype in ("int8", "int8mxu")
         ckv = ck.values if int8 else ck
@@ -482,7 +497,8 @@ class DecodeEngine:
         return co, (cl if collect else None)
 
     def _one_step(self, tok, step: int, st: _Batch, collect: bool):
-        """tok (B,) → (logits (B, V), cross logits (B, l, h, K) | None)."""
+        """tok (B,) → (logits (B, V), cross logits (B, c, h, K) | None), the
+        cross logits of the c layers that cross-attend, in layer order."""
         cfg, sd, dtype = self.cfg, self.sd, self.dtype
         sk, sv = st.caches
         h, d = cfg.num_heads, cfg.d_kv
@@ -516,13 +532,15 @@ class DecodeEngine:
             out = out + probs[..., step:step + 1] * v_new
             x = x + _mm(out.reshape(B, h * d), _layer(sd.wo_self, i), dtype)
 
-            # --- cross-attention against the hoisted K/V
-            xn = _rms(x, sd.ln_cross[i], eps, dtype)
-            qc = _mm(xn, _layer(sd.wq_cross, i), dtype).reshape(B, h, d)
-            co, cl = self._cross_attention(i, qc, st, collect)
-            if collect:
-                cross_logits.append(cl)
-            x = x + _mm(co.reshape(B, h * d), _layer(sd.wo_cross, i), dtype)
+            # --- cross-attention against the hoisted K/V, where the layer has it
+            j = self.cross_slot.get(i)
+            if j is not None:
+                xn = _rms(x, sd.ln_cross[j], eps, dtype)
+                qc = _mm(xn, _layer(sd.wq_cross, j), dtype).reshape(B, h, d)
+                co, cl = self._cross_attention(j, qc, st, collect)
+                if collect:
+                    cross_logits.append(cl)
+                x = x + _mm(co.reshape(B, h * d), _layer(sd.wo_cross, j), dtype)
             x = _mlp(sd, cfg, i, x, dtype)
 
         x = _rms(x, sd.final_ln, eps, dtype)
@@ -588,8 +606,9 @@ class DecodeEngine:
     def generate(self, input_ids: torch.Tensor, mask: torch.Tensor, chunked: bool = True):
         """((B,N,L) ids, (B,N,L) bool mask) on the model's device →
         (tokens (B, max_length-1) int32, first-step cross logits
-        (B, l, h, N·L) f32 | None). ``chunked=False`` runs the full length
-        as one chunk even when the engine has a ``chunk_size``."""
+        (B, c, h, N·L) f32 | None) of the c layers that cross-attend.
+        ``chunked=False`` runs the full length as one chunk even when the
+        engine has a ``chunk_size``."""
         with self._lock:
             return self._generate(input_ids, mask, self.chunk_size if chunked else None)
 
@@ -600,6 +619,8 @@ class DecodeEngine:
             zero = torch.zeros((), dtype=torch.float32, device=enc.device)
             cross_bias = torch.where(enc_mask, zero, NEG_INF)[:, None, :]  # (B,1,K)
             st = self._batch(self._project_cross_kv(enc), cross_bias)
+            profiling.count("engine.cross_kv_bytes", st.cross_kv_bytes)
+            profiling.count("engine.cross_layers", len(self.cross_slot))
 
             start = torch.full_like(st.tok, cfg.decoder_start_token_id)
             logits0, xl0 = self._one_step(start, 0, st, self.collect)

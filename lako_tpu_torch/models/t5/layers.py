@@ -29,10 +29,12 @@ from lako_tpu_torch.ops.flash_streamed import streamed_attention
 NEG_INF = -1e9
 _MASK64 = (1 << 64) - 1
 
-# jax.nn names used by feed_forward_proj; jax.nn.gelu is the tanh approximation
+# jax.nn names used by feed_forward_proj; jax.nn.gelu is the tanh approximation,
+# which is also HF's "gelu_new" (T5 v1.1 and Flan-T5's dense_act_fn)
 ACTIVATIONS = {
     "relu": F.relu,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
     "silu": F.silu,
 }
 

@@ -444,6 +444,90 @@ def test_graphed_chunks_equal_eager(cuda_device, kw, chunk_size):
     assert len(torch.unique(want)) > 2
 
 
+def _fido_decode_model(dev, mq, dtype, seed=0):
+    """A tiny FiDO reader on the card: 6 decoder layers, cross-attention in
+    layers 2 and 5 (stride 3), T5 v1.1's gated GELU and untied head."""
+    cfg = T5Config(vocab_size=64, d_model=128, d_kv=64, d_ff=256, num_layers=2,
+                   num_decoder_layers=6, num_heads=2, relative_attention_num_buckets=8,
+                   dropout_rate=0.0, feed_forward_proj="gated-gelu",
+                   tie_word_embeddings=False, cross_attention_stride=3,
+                   multiquery_cross_attention=mq)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = init_fid_t5(cfg, gen, dtype)
+    with torch.no_grad():   # scaled down so that the greedy tokens vary
+        model.t5.shared.weight.mul_(0.02)
+    ids = torch.randint(2, 64, (4, 2, 20), generator=gen, device=dev)
+    mask = torch.rand(4, 2, 20, generator=gen, device=dev) < 0.9
+    mask[..., 0] = True
+    return model, ids, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mq", [True, False], ids=["mq", "mh"])
+def test_fido_graphed_chunks_equal_eager(cuda_device, mq, dtype):
+    """A FiDO decoder's token loop as CUDA graphs gives the eager loop's
+    tokens bitwise, on a first batch and on a second one replayed through
+    the same graph, with the step-0 cross logits of the 2 cross layers; the
+    graph is captured once for the batch shape, again for a new one."""
+    from lako_tpu_torch.core import profiling
+
+    model, ids, mask = _fido_decode_model(cuda_device, mq, dtype)
+    eager = DecodeEngine(model, max_length=10, collect_cross_scores=True, cuda_graphs=False)
+    graphed = DecodeEngine(model, max_length=10, collect_cross_scores=True)
+    t0 = profiling.now()
+    for batch in ([0, 1, 2, 3], [3, 1, 2, 0], [2, 0]):
+        want, want_xl = eager.generate(ids[batch], mask[batch])
+        got, got_xl = graphed.generate(ids[batch], mask[batch])
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(got_xl, want_xl, rtol=0, atol=0)
+        assert got_xl.shape == (len(batch), 2, 2, 40)
+    counts = profiling.snapshot()["counts"]
+    captures = sum(n for t, k, n in counts if t >= t0 and k == "engine.captures")
+    replays = sum(n for t, k, n in counts if t >= t0 and k == "engine.replays")
+    assert (captures, replays) == (2, 3)
+    assert len(torch.unique(want)) > 1
+
+
+def _step_kernels(engine, ids, mask) -> int:
+    """The device activities (kernels, copies, sets) a replayed decode step
+    launches: one generate call captures the full-length chunk, then its
+    graph's replay is traced."""
+    engine.generate(ids, mask)
+    (chunk,) = next(iter(engine._batches.values())).chunks.values()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        chunk.graph.replay()
+        torch.cuda.synchronize()
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    # the trace of one replay has held a stray activity or two beyond the steps'
+    return round(n / (engine.steps - 1))
+
+
+# A replayed step of the homogeneous t5-large-shaped decoder below (24
+# layers), before the engine took FiDO decoders: counted on an H100 80GB HBM3
+# by _step_kernels against the engine that refused a cross_attention_stride
+# (10,906 activities in 8 steps; the engine that takes FiDO: the same).
+T5_LARGE_STEP_KERNELS = 1363
+
+
+def test_homogeneous_step_launches_the_same_kernels(cuda_device):
+    """A t5-large-shaped decoder's captured step launches the kernels it
+    launched before FiDO decoders ran on the engine; a FiDO stride of 6 at
+    the same widths launches none of cross-attention's in 20 of 24 layers."""
+    base = dict(vocab_size=32128, d_model=1024, d_kv=64, d_ff=4096, num_layers=1,
+                num_decoder_layers=24, num_heads=16, dropout_rate=0.0)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    ids = torch.randint(2, 32128, (2, 2, 16), generator=gen, device=cuda_device)
+    mask = torch.ones_like(ids, dtype=torch.bool)
+    counts = {}
+    for name, extra in (("t5-large", {}), ("fido", dict(cross_attention_stride=6))):
+        model = init_fid_t5(T5Config(**base, **extra), gen, torch.bfloat16)
+        counts[name] = _step_kernels(DecodeEngine(model, max_length=10), ids, mask)
+        del model
+    assert counts["t5-large"] == T5_LARGE_STEP_KERNELS, counts
+    # a cross block's 17 activities, in each of the 20 layers that have none
+    assert counts["t5-large"] - counts["fido"] == 20 * 17, counts
+
+
 def test_int8mxu_products_exact_past_1040_keys(cuda_device):
     """int8mxu's q·K and p·V on the card are exact integers at 2500 keys,
     against an int64 product on the CPU, the largest sum included."""

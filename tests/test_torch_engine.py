@@ -17,6 +17,7 @@ from lako_tpu.models.t5.engine import DecodeEngine as JaxDecodeEngine
 from lako_tpu.models.t5.model import FiDT5 as JaxFiDT5
 from lako_tpu_torch.core.config import T5Config
 from lako_tpu_torch.models.t5 import FiDT5, params_from_jax
+from lako_tpu_torch.models.t5.beam_engine import BeamEngine
 from lako_tpu_torch.models.t5.decode import make_best_generate_fn
 from lako_tpu_torch.models.t5.engine import DecodeEngine
 
@@ -230,8 +231,10 @@ def test_unported_options_raise():
         DecodeEngine(model, self_cache_layout="dd")
     fido = FiDT5(T5Config(vocab_size=64, d_model=32, d_kv=8, d_ff=64, num_layers=1,
                           num_decoder_layers=4, num_heads=4, cross_attention_stride=2))
+    # the greedy engine runs FiDO (tests/test_torch_fido.py); the beam engine refuses it
+    assert DecodeEngine(fido).cross_slot == {1: 0, 3: 1}
     with pytest.raises(ValueError, match="homogeneous"):
-        DecodeEngine(fido)
+        BeamEngine(fido)
     assert DecodeEngine(model, max_length=8, chunk_size=7).chunk_size is None
     with pytest.raises(ValueError, match="greedy"):
         make_best_generate_fn(model, num_beams=4, collect_cross_scores=True)

@@ -39,7 +39,8 @@ DIM = 16
 SERVE_SPANS = {"serve.queue", "serve.batch", "serve.retrieve", "serve.collate", "serve.fetch",
                "serve.detokenize", "engine.prefill", "engine.replay"}
 TRAIN_SPANS = {"train.fwd_bwd", "train.optimizer"}
-COUNTERS = {"serve.batches", "serve.requests", "engine.captures", "engine.replays"}
+COUNTERS = {"serve.batches", "serve.requests", "engine.captures", "engine.replays",
+            "engine.cross_kv_bytes", "engine.cross_layers"}
 
 
 def _since(t0):
@@ -401,6 +402,10 @@ def test_service_and_train_step_record_every_span_and_counter(monkeypatch):
     replays = [s for s in spans if s["name"] == "engine.replay"]
     assert delta["engine.replays"] == len(replays) >= 2
     assert delta["engine.captures"] >= 1
+    prefills = [s for s in spans if s["name"] == "engine.prefill"]
+    (st,) = engine._batches.values()
+    assert delta["engine.cross_layers"] == len(prefills) * engine.cfg.num_decoder_layers
+    assert delta["engine.cross_kv_bytes"] == len(prefills) * st.cross_kv_bytes > 0
     sids = {b["sid"] for b in batches}
     for s in spans:
         if s["name"] in SERVE_SPANS - {"serve.batch", "serve.queue"}:

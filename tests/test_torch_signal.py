@@ -25,6 +25,7 @@ from lako_tpu.signal import aggregate as jax_aggregate
 from lako_tpu.text import metrics as jax_metrics
 from lako_tpu_torch.core.config import AttentionSignalConfig, T5Config
 from lako_tpu_torch.models.t5 import FiDT5, params_from_jax
+from lako_tpu_torch.models.t5.convert import init_fid_t5
 from lako_tpu_torch.models.t5.decode import make_generate_and_score_fn
 from lako_tpu_torch.signal import aggregate
 from lako_tpu_torch.text import metrics
@@ -257,15 +258,25 @@ def test_generate_and_score_matches_jax(scoring_model, backend, style, last_half
     np.testing.assert_allclose(scores.numpy(), np.asarray(jscores), rtol=1e-4, atol=1e-5)
 
 
-def test_generate_and_score_raises_where_jax_raises():
-    """backend="engine" on a FiDO decoder raises in both packages."""
+def test_generate_and_score_raises_where_jax_raises(scoring_model):
+    """backend="engine" on a FiDO decoder raises in the JAX package; the
+    port's greedy engine runs FiDO, so there it scores as the layer-unrolled
+    route does (tests/test_torch_fido.py holds the scores to each other)."""
     kw = dict(vocab_size=64, d_model=32, d_kv=8, d_ff=64, num_layers=1, num_decoder_layers=4,
               num_heads=4, cross_attention_stride=2)
     with pytest.raises(ValueError, match="engine"):
         jax_generate_and_score(JaxFiDT5(JaxT5Config(**kw)), JaxSignalConfig(), backend="engine")
-    with pytest.raises(ValueError, match="engine"):
-        make_generate_and_score_fn(FiDT5(T5Config(**kw)), AttentionSignalConfig(),
-                                   backend="engine")
+    batch = scoring_model[3]
+    fido = init_fid_t5(T5Config(**dict(kw, vocab_size=scoring_model[2].config.vocab_size)),
+                       torch.Generator().manual_seed(0))
+    arrays = [torch.from_numpy(a) for a in (batch.passage_ids, batch.passage_mask,
+                                            batch.fact_spans)]
+    tokens, scores = make_generate_and_score_fn(fido, AttentionSignalConfig(), max_length=4,
+                                                backend="engine")(*arrays)
+    want_tokens, want_scores = make_generate_and_score_fn(
+        fido, AttentionSignalConfig(), max_length=4, backend="flax")(*arrays)
+    np.testing.assert_array_equal(tokens.numpy(), want_tokens.numpy())
+    np.testing.assert_allclose(scores.numpy(), want_scores.numpy(), rtol=1e-4, atol=1e-5)
 
 
 def _fixture_words():
