@@ -87,9 +87,12 @@ struct Leaf {
   long long vt_cols;         // kVTransposed: the port's columns
 };
 
-// the step's scalars, from the host in float32
+// the update's scalars: the constant ones from the host in float32, the
+// step's own (decay, keep, lr) read from the card when a pass runs, so a
+// CUDA graph that captured the launch takes each step's values
 struct Step {
-  float clip, eps, decay, keep, lr, min_scale;
+  float clip, eps, min_scale;
+  const float* values;  // decay, keep, lr
 };
 
 // the fixed head of the scratch buffer
@@ -421,6 +424,7 @@ factors_kernel(const Leaf* __restrict__ table, int n_leaves, int n_tiles, float*
   float* vrow_factor = S.base + (row_stat ? L.frow : L.fcol);
   float* vcol_factor = S.base + (row_stat ? L.fcol : L.frow);
   const Clip clip = clip_of(S, st);
+  const float decay = st.values[0], keep = st.values[1];
   const float s = clip.keep ? 1.f : __fdiv_rn(clip.clip, clip.norm);
   const float s2 = __fmul_rn(s, s);
   // s^2 x (sum / count) + eps
@@ -432,7 +436,7 @@ factors_kernel(const Leaf* __restrict__ table, int n_leaves, int n_tiles, float*
     float acc = 0.f;
     for (long long k = threadIdx.x; k < n_vrow; k += THREADS) {
       const float mean = mean_of(sum_parts(vrow_part, n_vrow, vrow_parts, k), vrow_over);
-      const float v = __fadd_rn(__fmul_rn(st.decay, L.va[k]), __fmul_rn(st.keep, mean));
+      const float v = __fadd_rn(__fmul_rn(decay, L.va[k]), __fmul_rn(keep, mean));
       L.va[k] = v;
       acc = __fadd_rn(acc, v);
     }
@@ -443,7 +447,7 @@ factors_kernel(const Leaf* __restrict__ table, int n_leaves, int n_tiles, float*
     const long long end = min(n_vcol, k_block * FIN_CHUNK);
     for (long long k = (k_block - 1) * FIN_CHUNK + threadIdx.x; k < end; k += THREADS) {
       const float mean = mean_of(sum_parts(vcol_part, n_vcol, vcol_parts, k), vcol_over);
-      const float v = __fadd_rn(__fmul_rn(st.decay, L.vb[k]), __fmul_rn(st.keep, mean));
+      const float v = __fadd_rn(__fmul_rn(decay, L.vb[k]), __fmul_rn(keep, mean));
       L.vb[k] = v;
       vcol_factor[k] = __frsqrt_rn(v);
     }
@@ -464,6 +468,7 @@ block_rms_kernel(const Leaf* __restrict__ table, int n_leaves, int n_tiles, floa
   const long long tile = b - L.tile0;
   const long long c0 = (tile - tile / L.tiles_c * L.tiles_c) * TILE;
   const Clip clip = clip_of(S, st);
+  const float decay = st.values[0], keep = st.values[1];
   float su[SLOTS] = {};
   walk_tile(L, tile, S, clip, [&](int a, long long r, float (&g)[PER_LANE], unsigned mask,
                                        const float (&fcol)[PER_LANE]) {
@@ -473,7 +478,7 @@ block_rms_kernel(const Leaf* __restrict__ table, int n_leaves, int n_tiles, floa
         if ((mask >> j) & 1u) {
           const float sq = __fadd_rn(__fmul_rn(g[j], g[j]), st.eps);
           float* v = L.va + v_index(L, r * L.cols + col_of(c0, lane, j));
-          *v = __fadd_rn(__fmul_rn(st.decay, *v), __fmul_rn(st.keep, sq));
+          *v = __fadd_rn(__fmul_rn(decay, *v), __fmul_rn(keep, sq));
         }
       }
     }
@@ -506,7 +511,7 @@ update_kernel(const Leaf* __restrict__ table, int n_leaves, int n_tiles, float* 
   const long long tile = b - L.tile0;
   const long long c0 = (tile - tile / L.tiles_c * L.tiles_c) * TILE;
   const Clip clip = clip_of(S, st);
-  const float us = S.uscale[leaf], ps = S.pscale[leaf];
+  const float us = S.uscale[leaf], ps = S.pscale[leaf], lr = st.values[2];
   const float rus = __frcp_rn(us);
   const bool fast = isfinite(us);
   walk_tile(L, tile, S, clip, [&](int, long long r, float (&g)[PER_LANE], unsigned mask,
@@ -514,7 +519,7 @@ update_kernel(const Leaf* __restrict__ table, int n_leaves, int n_tiles, float* 
     u_row(L, S, r, c0, lane, g, mask, fcol);
 #pragma unroll
     for (int j = 0; j < PER_LANE; ++j)
-      g[j] = -__fmul_rn(__fmul_rn(div_by(g[j], us, rus, fast), st.lr), ps);
+      g[j] = -__fmul_rn(__fmul_rn(div_by(g[j], us, rus, fast), lr), ps);
     store8(L.g, L, r, c0, lane, g, mask);
   });
 }
@@ -526,17 +531,19 @@ update_kernel(const Leaf* __restrict__ table, int n_leaves, int n_tiles, float* 
 // leaf's first tile and its first block of pass 2 as int32. n_tiles: the
 // tiles of passes 1, 3 and 4; n_fin: the blocks of pass 2. scratch: the
 // float32 buffer the table's offsets point into, its head (2 n_tiles + 3
-// n_leaves + 3 floats, the last two the uint32 counters) first. Sets the
+// n_leaves + 3 floats, the last two the uint32 counters) first. values
+// (device): the step's decay, keep and lr as float32, read when the passes
+// run. Sets the
 // counters to 0 and launches the four passes (three with no factored leaf)
 // on `stream`; returns a cudaError_t code (0 = launched).
-extern "C" int lako_adafactor_update(const void* table, void* scratch, int n_leaves, int n_tiles,
-                                     int n_fin, float clip, float eps, float decay, float keep,
-                                     float lr, float min_scale, void* stream) {
+extern "C" int lako_adafactor_update(const void* table, void* scratch, const void* values,
+                                     int n_leaves, int n_tiles, int n_fin, float clip, float eps,
+                                     float min_scale, void* stream) {
   static_assert(sizeof(Leaf) == 16 * 8, "Leaf is sixteen 64-bit words");
   static_assert(THREADS == TILE, "pass 1 takes a tile column a thread");
   if (n_leaves < 1 || n_tiles < 0 || n_fin < 0) return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return 0;
-  const Step st{clip, eps, decay, keep, lr, min_scale};
+  const Step st{clip, eps, min_scale, static_cast<const float*>(values)};
   const auto* t = static_cast<const Leaf*>(table);
   auto* s = static_cast<float*>(scratch);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);

@@ -16,7 +16,7 @@ blocks. Each module is switched by ``self.training``.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +70,13 @@ class Dropout(nn.Module):
     ``jax.random.fold_in`` in the JAX package; the bits differ from JAX's.
     Keeps ``1 - rate`` of the elements scaled by ``1 / (1 - rate)``, as flax's
     ``nn.Dropout``; the identity in eval mode or at rate 0.
+
+    ``applied`` counts the applications since the key was set (two a site
+    under remat: the forward and the recompute). A CUDA graph cannot make a
+    generator while it captures, so a captured train step hands the module
+    ``generators``, one an application, and seeds them before every replay
+    (:meth:`seed_generators`, train/reader.py): each draws once from offset
+    0, the bits of a fresh generator.
     """
 
     def __init__(self, rate: float):
@@ -77,18 +84,35 @@ class Dropout(nn.Module):
         self.rate = rate
         self.site = 0
         self.key: Optional[Tuple[int, int]] = None
+        self.applied = 0
+        self.generators: Optional[List[torch.Generator]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
+        keep = self.keep_mask(x)
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros((), dtype=x.dtype,
+                                                                     device=x.device))
+
+    def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
+        """This application's mask: ``rand(x.shape) < 1 - rate`` from a
+        generator seeded with ``_mix(seed, step, site)``."""
         if self.key is None:
             raise RuntimeError("dropout in training mode needs set_dropout_key(model, "
                                "seed, step) before the forward")
-        gen = torch.Generator(device=x.device)
-        gen.manual_seed(_mix(*self.key, self.site))
-        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - self.rate
-        return torch.where(keep, x / (1.0 - self.rate), torch.zeros((), dtype=x.dtype,
-                                                                     device=x.device))
+        if self.generators is None:
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(_mix(*self.key, self.site))
+        else:
+            gen = self.generators[self.applied]
+        self.applied += 1
+        return torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - self.rate
+
+    def seed_generators(self, generators: List[torch.Generator], seed: int, step: int) -> None:
+        """Seeds each of ``generators`` as this module seeds the generator
+        of its draws at ``(seed, step)``."""
+        for gen in generators:
+            gen.manual_seed(_mix(seed, step, self.site))
 
 
 def number_dropout_sites(model: nn.Module) -> None:
@@ -99,10 +123,12 @@ def number_dropout_sites(model: nn.Module) -> None:
 
 def set_dropout_key(model: nn.Module, seed: int, step: int) -> None:
     """The ``(seed, step)`` every Dropout module of ``model`` draws its mask
-    from until the next call (the JAX train step's ``fold_in(rng, step)``)."""
+    from until the next call (the JAX train step's ``fold_in(rng, step)``);
+    each module's count of applications starts again."""
     for module in model.modules():
         if isinstance(module, Dropout):
             module.key = (seed, step)
+            module.applied = 0
 
 
 class Dense(nn.Module):
@@ -174,6 +200,7 @@ class RelativePositionBias(nn.Module):
         self.dtype = dtype
         self.rel_embedding = nn.Embedding(config.relative_attention_num_buckets,
                                           config.num_heads)
+        self._on_device: Dict[Tuple[int, int, int, torch.device], torch.Tensor] = {}
 
     def buckets(self, qlen: int, klen: int, offset: int = 0) -> torch.Tensor:
         """(q, k) bucket ids, computed on the CPU so every device sees the
@@ -186,9 +213,18 @@ class RelativePositionBias(nn.Module):
             num_buckets=cfg.relative_attention_num_buckets,
             max_distance=cfg.relative_attention_max_distance)
 
+    def device_buckets(self, qlen: int, klen: int, offset: int,
+                       device: torch.device) -> torch.Tensor:
+        """:meth:`buckets` copied to ``device`` once a shape: a CUDA graph
+        cannot capture the copy from pageable host memory."""
+        key = (qlen, klen, offset, device)
+        if key not in self._on_device:
+            self._on_device[key] = self.buckets(qlen, klen, offset).to(device)
+        return self._on_device[key]
+
     def forward(self, qlen: int, klen: int, offset: int = 0) -> torch.Tensor:
         weight = self.rel_embedding.weight
-        buckets = self.buckets(qlen, klen, offset).to(weight.device)
+        buckets = self.device_buckets(qlen, klen, offset, weight.device)
         values = F.embedding(buckets, weight)                # (q, k, heads)
         return values.permute(2, 0, 1)[None].to(self.dtype)  # (1, h, q, k)
 

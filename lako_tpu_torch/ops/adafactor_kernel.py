@@ -127,15 +127,15 @@ def plan(paths: Tuple[str, ...], shapes: Tuple[Tuple[int, ...], ...]) -> Plan:
 
 def fused_adafactor_update_reference(paths: Sequence[str], grads: Sequence[torch.Tensor],
                                      params: Sequence[torch.Tensor], v_row, v_col, v, *,
-                                     clip: float, lr: float, decay: float,
-                                     keep: float) -> List[torch.Tensor]:
+                                     clip: float, values: torch.Tensor) -> List[torch.Tensor]:
     """Plain version of K7: the chain (clip by the global norm, factored
     RMS with decay ``decay`` and ``keep = 1 - decay``, clip by block RMS,
-    ``lr``, parameter RMS, -1) in its arithmetic, leaf by leaf through the
-    plan; the leaves' sums of squares are added as one tensor's sum, where
-    the chain adds them one by one. Writes the update into ``grads`` and the
-    statistics into ``v_row``, ``v_col`` and ``v``, in place; returns
-    ``grads``."""
+    ``lr``, parameter RMS, -1; ``values`` holds decay, keep and lr) in its
+    arithmetic, leaf by leaf through the plan; the leaves' sums of squares
+    are added as one tensor's sum, where the chain adds them one by one.
+    Writes the update into ``grads`` and the statistics into ``v_row``,
+    ``v_col`` and ``v``, in place; returns ``grads``."""
+    decay, keep, lr = values.tolist()
     pl = plan(tuple(paths), tuple(tuple(g.shape) for g in grads))
     norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
     under = norm < clip
@@ -203,8 +203,7 @@ def leaf_table(pl: Plan, grads, params, v_row, v_col, v) -> np.ndarray:
     return table
 
 
-def _launch(pl: Plan, table: np.ndarray, device, *, clip: float, lr: float, decay: float,
-            keep: float) -> None:
+def _launch(pl: Plan, table: np.ndarray, device, *, clip: float, values: torch.Tensor) -> None:
     """K7's four launches: the table goes to the card through one pinned
     buffer and one asynchronous copy; the scratch is allocated here; nothing
     synchronizes."""
@@ -220,30 +219,45 @@ def _launch(pl: Plan, table: np.ndarray, device, *, clip: float, lr: float, deca
         _build.release_graph_buffers()
     scratch = torch.empty(pl.scratch, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        fn = _build.bind("lako_adafactor_update", 2, 3, 0, 6, "adafactor")
-        code = fn(dev_table.data_ptr(), scratch.data_ptr(), len(table), pl.n_tiles, pl.n_fin,
-                  clip, _EPSILON, decay, keep, lr, _MIN_PARAM_SCALE, stream)
+        fn = _build.bind("lako_adafactor_update", 3, 3, 0, 3, "adafactor")
+        code = fn(dev_table.data_ptr(), scratch.data_ptr(), values.data_ptr(), len(table),
+                  pl.n_tiles, pl.n_fin, clip, _EPSILON, _MIN_PARAM_SCALE, stream)
     _build.check_launch(code, "fused_adafactor_update")
+
+
+def step_values(values: torch.Tensor, decay: float, keep: float, lr: float) -> torch.Tensor:
+    """Writes a step's ``decay``, ``keep`` and ``lr`` into ``values`` (three
+    float32) by launches on the current stream; returns ``values``. Nothing
+    synchronizes, and a CUDA graph that captured K7 reads them when it is
+    replayed after these launches."""
+    for i, x in enumerate((decay, keep, lr)):
+        values[i].fill_(x)
+    return values
 
 
 def fused_adafactor_update(paths: Sequence[str], grads: Sequence[torch.Tensor],
                            params: Sequence[torch.Tensor], v_row, v_col, v, *, clip: float,
-                           lr: float, decay: float, keep: float) -> List[torch.Tensor]:
+                           values: torch.Tensor) -> List[torch.Tensor]:
     """K7: one Adafactor step of every leaf (clip by the global norm
     ``clip``, factored RMS with ``decay`` and ``keep = 1 - decay``, clip by
     block RMS at 1, ``lr``, parameter RMS at least 1e-3, -1). ``paths[i]``
     names leaf i (a ``.../kernel`` of 2 dimensions is a dense weight held
     ``(out, in)``); ``grads``, ``params``: its gradient and parameter;
     ``v_row``, ``v_col``, ``v``: its statistics in the JAX orientation
-    (optax's ``FactoredState``). Writes the update into ``grads`` and the
-    new statistics into ``v_row``, ``v_col`` and ``v``, in place; returns
+    (optax's ``FactoredState``); ``values``: the step's decay, keep and lr,
+    three float32 on the gradients' device (:func:`step_values`), which the
+    kernel reads when it runs. Writes the update into ``grads`` and the new
+    statistics into ``v_row``, ``v_col`` and ``v``, in place; returns
     ``grads``. CUDA tensors must be contiguous float32 on one card; CPU
     tensors take the plain version."""
     trees = (grads, params, v_row, v_col, v)
     if not grads or any(len(x) != len(paths) for x in trees):
         raise ValueError(f"{len(paths)} paths for {[len(x) for x in trees]} tensors")
     device = grads[0].device
-    hyper = dict(clip=clip, lr=lr, decay=decay, keep=keep)
+    if values.device != device or values.dtype is not torch.float32 or values.numel() != 3:
+        raise ValueError(f"values: three float32 on {device}, got {values.numel()} "
+                         f"{values.dtype} on {values.device}")
+    hyper = dict(clip=clip, values=values)
     if device.type == "cpu":
         if any(t.device != device for x in trees for t in x):
             raise ValueError("the tensors lie on different devices")

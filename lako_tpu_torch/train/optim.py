@@ -55,8 +55,16 @@ Schedule = Union[float, Callable[[int], float]]
 
 
 class GradientTransformation(NamedTuple):
+    """``init(params) -> state``; ``update(updates, state, params=None) ->
+    (updates, state)``. ``load``, where a CUDA graph can capture the update:
+    ``load(state, params)`` writes the values of ``state``'s step that the
+    update reads on the card (a launch on the current stream, before the
+    graph's replay) and returns the state the update returns, or None where
+    this tree's update cannot be captured. Under a capture ``update`` reads
+    those values and writes none."""
     init: Callable[[Tree], Any]
-    update: Callable[..., Tuple[Tree, Any]]   # (updates, state, params=None)
+    update: Callable[..., Tuple[Tree, Any]]
+    load: Optional[Callable[[Any, Tree], Any]] = None
 
 
 def _scalar(x: float, dtype: torch.dtype) -> float:
@@ -369,6 +377,11 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
+def _capturing(t: torch.Tensor) -> bool:
+    """Whether a CUDA graph is capturing the current stream of ``t``'s card."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def clipped_adafactor(clip: float, lr: Schedule) -> GradientTransformation:
     """``chain(clip_by_global_norm(clip), adafactor(lr))``, its state and its
     results, routed on the tree it is handed:
@@ -381,29 +394,57 @@ def clipped_adafactor(clip: float, lr: Schedule) -> GradientTransformation:
       gradient shares, is copied first. Sums run in another order than the
       chain's, and the factored statistics scale the sums of g^2 by the
       clip's scale squared where the chain sums the clipped squares; each
-      update counts ``train.adafactor_fused`` (core/profiling.py).
+      update counts ``train.adafactor_fused`` (core/profiling.py). The
+      step's decay, keep and lr reach K7 through a tensor on the card that
+      ``load`` writes, so a CUDA graph can capture the update
+      (:class:`GradientTransformation`); ``load`` counts the update then.
     - Leaves on the CPU, and leaves on the card in another dtype (bfloat16
       masters), take the chain. There optax rounds the statistics in the
       leaf's dtype, a rounding the kernel does not re-derive.
     - A tree of mixed devices or dtypes raises.
     """
     plain = chain(clip_by_global_norm(clip), adafactor(lr))
+    values: Dict[torch.device, torch.Tensor] = {}   # K7's decay, keep and lr on each card
+
+    def fused(*trees: Tree) -> bool:
+        kinds = {(_on_card(t), t.dtype) for tree in trees for t in tree.values()}
+        if len(kinds) > 1:
+            raise ValueError(f"adafactor takes a tree on one device in one dtype, got "
+                             f"{sorted((('card' if c else 'host'), str(d)) for c, d in kinds)}")
+        return kinds == {(True, torch.float32)}
+
+    def advanced(state):
+        clip_state, inner = state
+        fact = inner.factored_rms
+        return (clip_state, inner._replace(factored_rms=fact._replace(count=fact.count + 1),
+                                           learning_rate=inner.learning_rate + 1))
+
+    def load(state, params: Tree):
+        if not fused(params):
+            return None
+        from lako_tpu_torch.ops.adafactor_kernel import step_values
+
+        _, inner = state
+        decay, keep = _factored_decay(inner.factored_rms.count)
+        step = _learning_rate(lr, inner.learning_rate)
+        device = next(iter(params.values())).device
+        if device not in values:
+            values[device] = torch.zeros(3, dtype=torch.float32, device=device)
+        step_values(values[device], float(decay), float(keep), _scalar(step, torch.float32))
+        profiling.count("train.adafactor_fused")
+        return advanced(state)
 
     def update(updates: Tree, state, params: Optional[Tree] = None):
         if params is None:
             raise ValueError("params required for adafactor")
-        kinds = {(_on_card(t), t.dtype) for tree in (updates, params) for t in tree.values()}
-        if len(kinds) > 1:
-            raise ValueError(f"adafactor takes a tree on one device in one dtype, got "
-                             f"{sorted((('card' if c else 'host'), str(d)) for c, d in kinds)}")
-        if kinds != {(True, torch.float32)}:
+        if not fused(updates, params):
             return plain.update(updates, state, params)
         from lako_tpu_torch.ops.adafactor_kernel import fused_adafactor_update
 
-        clip_state, inner = state
-        fact = inner.factored_rms
-        decay, keep = _factored_decay(fact.count)
-        step = _learning_rate(lr, inner.learning_rate)
+        if _capturing(next(iter(updates.values()))):   # the replay's values: load's
+            state = advanced(state)
+        else:
+            state = load(state, params)
         paths, grads, seen = list(updates), [], set()
         for g in updates.values():
             if not g.is_contiguous():
@@ -412,17 +453,14 @@ def clipped_adafactor(clip: float, lr: Schedule) -> GradientTransformation:
                 g = g.clone()
             seen.add(g.data_ptr())
             grads.append(g)
+        fact = state[1].factored_rms
         fused_adafactor_update(paths, grads, [params[k] for k in paths],
                                [fact.v_row[k] for k in paths], [fact.v_col[k] for k in paths],
                                [fact.v[k] for k in paths], clip=clip,
-                               lr=_scalar(step, torch.float32), decay=float(decay),
-                               keep=float(keep))
-        profiling.count("train.adafactor_fused")
-        inner = inner._replace(factored_rms=fact._replace(count=fact.count + 1),
-                               learning_rate=inner.learning_rate + 1)
-        return dict(zip(paths, grads)), (clip_state, inner)
+                               values=values[grads[0].device])
+        return dict(zip(paths, grads)), state
 
-    return GradientTransformation(plain.init, update)
+    return GradientTransformation(plain.init, update, load)
 
 
 def chain(*txs: GradientTransformation) -> GradientTransformation:

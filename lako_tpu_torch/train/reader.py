@@ -1,14 +1,18 @@
 """Reader training and evaluation loops: the port of lako_tpu/train/reader.py.
 
-One device, eager PyTorch. The train step runs FiDT5 in training mode
+One device. The train step runs FiDT5 in training mode
 (dropout keyed by ``(seed, step)``, the encoder blocks rematerialized under
 ``use_remat``, encoder self-attention through the streamed kernels K1 and
 K2a/K2b/K2c, or the whole-block kernel K4, when the config routes it there),
 takes the gradient of the mean cross-entropy over labels that are not -100,
 and applies clipping, Adam(W) (``adamw8bit``: 8-bit moments through the
-kernel K5) and the linear warmup schedule (train/optim.py). Each epoch ends
-with a greedy eval through ``make_best_generate_fn`` and exact match. Both
-loops run on the CUDA card unless given another device.
+kernel K5) or Adafactor (K7) and the linear warmup schedule
+(train/optim.py). On the card, with Adafactor on float32 masters, the step
+replays CUDA graphs of each input shape from the shape's second step on,
+the forward and backward and then the update (:class:`_StepGraphs`); other
+optimizers run eagerly. Each epoch ends with a greedy eval through
+``make_best_generate_fn`` and exact match, with the graphs dropped first.
+Both loops run on the CUDA card unless given another device.
 
 The run loop is the JAX package's: ``best_dev`` saved on an improvement and
 ``last`` every evaluated epoch (core/checkpoint.py, main process only);
@@ -26,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,9 +51,9 @@ from lako_tpu_torch.core.profiling import start_trace
 from lako_tpu_torch.data import ReaderCollator, ReaderDataset, batch_iterator
 from lako_tpu_torch.models.t5 import FiDT5, init_fid_t5, jax_param_paths
 from lako_tpu_torch.models.t5.decode import make_best_generate_fn
-from lako_tpu_torch.models.t5.layers import set_dropout_key
+from lako_tpu_torch.models.t5.layers import Dropout, set_dropout_key
 from lako_tpu_torch.text.metrics import ems
-from lako_tpu_torch.train.optim import make_optimizer
+from lako_tpu_torch.train.optim import apply_updates, make_optimizer
 from lako_tpu_torch.train.state import TrainState
 
 
@@ -60,7 +64,184 @@ def model_params(model: FiDT5) -> Dict[str, torch.Tensor]:
     return {paths[name]: p for name, p in model.named_parameters()}
 
 
-def make_reader_train_step(model: FiDT5, backend: str = "flax") -> Callable:
+GRAPH_SHAPES = 4     # input shapes whose captured step a train step keeps
+
+
+def _forward_backward(model: FiDT5, params: List[torch.Tensor], ids, mask, labels):
+    """The step's loss and the gradient of every parameter (zeros for one
+    the loss does not reach)."""
+    loss, _, _ = model(ids, mask, labels)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return loss, [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def _apply_update(tx, opt_state, params: Dict[str, torch.Tensor], grads: List[torch.Tensor]):
+    """``tx``'s update of ``params`` in place, as a graph captures it; its
+    next state is ``tx.load``'s."""
+    with torch.no_grad():
+        updates, _ = tx.update(dict(zip(params, grads)), opt_state, params)
+        apply_updates(params, updates)
+
+
+def _eager_step(model: FiDT5, state: TrainState, ids, mask, labels):
+    with profiling.span("train.fwd_bwd", device=ids.device):
+        loss, grads = _forward_backward(model, list(state.params.values()), ids, mask, labels)
+    return state.apply_gradients(dict(zip(state.params, grads))), loss.detach()
+
+
+def _bindings(state: TrainState) -> tuple:
+    """What a captured step works on besides its inputs: the optimizer, and
+    the buffers of the parameters and of the optimizer's state."""
+    tensors = [*state.params.values(), *(v for v in flatten_tree(state.opt_state).values()
+                                         if isinstance(v, torch.Tensor))]
+    return (id(state.tx), *((t.data_ptr(), t.dtype) for t in tensors))
+
+
+class _Captured(NamedTuple):
+    """One input shape's captured step."""
+
+    forward_backward: "torch.cuda.CUDAGraph"
+    update: "torch.cuda.CUDAGraph"
+    inputs: Tuple[torch.Tensor, ...]      # the static ids, mask and labels
+    loss: torch.Tensor
+    dropout: List[Tuple[Dropout, List[torch.Generator]]]
+    bindings: tuple                       # :func:`_bindings` at capture
+
+
+class _StepGraphs:
+    """The train step as two CUDA graphs an input shape (shapes and dtypes
+    of ids, mask and labels) in one memory pool: the forward, loss and
+    ``autograd.grad``; then the optimizer's update of the parameters and its
+    state in place, for an optimizer whose update a graph can capture
+    (``tx.load``, train/optim.py: Adafactor through K7 on float32 masters).
+    For another the step stays eager (``__call__`` returns None).
+
+    A shape's first call runs eagerly, its forward and backward on the
+    graphs' stream (library handles, autograd's threads, the kernels'
+    binding), and notes each Dropout module's applications. Its second
+    captures both graphs, and it and every later call copy the inputs into
+    the graph's buffers, seed the graph's dropout generators (one an
+    application) from ``(seed, step)``, replay the forward and backward,
+    ``load`` the update's step values and replay the update. The gradients
+    are the first graph's outputs and the second's inputs, and no tensor
+    holds them between the graphs' captures and replays: like the
+    activations they are free blocks of the pool, which only a capture into
+    the pool takes, and the allocator counts neither between steps, as for
+    an eager step. The loss is a copy. A shape whose parameters or
+    optimizer state no longer have the buffers it captured (a parameter
+    rebound, as ``.to(dtype)`` does), or whose optimizer changed, is
+    captured again. At most ``GRAPH_SHAPES`` shapes are kept, the
+    oldest dropped first; :meth:`release` drops them all and the pool.
+    Counters ``train.graph_captures`` and ``train.graph_replays``
+    (core/profiling.py)."""
+
+    def __init__(self, model: FiDT5):
+        self.model = model
+        # each warmed shape's Dropout modules and their applications a step
+        self.applications: Dict[tuple, List[Tuple[Dropout, int]]] = {}
+        self.graphs: Dict[tuple, _Captured] = {}
+        self.stream = None
+        self.pool = None
+
+    def release(self) -> None:
+        """Drops every captured graph and hands their pool's memory back to
+        the device (the allocator's cache emptied); a shape captures again at
+        its next call."""
+        self.graphs.clear()
+        self.pool = None
+        torch.cuda.empty_cache()
+
+    def __call__(self, state: TrainState, ids, mask, labels, seed: int):
+        key = tuple((tuple(t.shape), t.dtype) for t in (ids, mask, labels))
+        captured = self.graphs.get(key)
+        if captured is not None and captured.bindings != _bindings(state):
+            del self.graphs[key]
+            captured = None
+            if not self.graphs:   # the pool goes with its last graph
+                self.pool = None
+        opt_state = None
+        if captured is None:
+            if key not in self.applications:
+                return self._warm_up(key, state, ids, mask, labels)
+            opt_state = state.tx.load(state.opt_state, state.params)
+            if opt_state is None:
+                return None
+        with profiling.span("train.fwd_bwd", device=ids.device):
+            if captured is None:
+                profiling.count("train.graph_captures")
+                captured = self.graphs[key] = self._capture(key, state, ids, mask, labels)
+                if len(self.graphs) > GRAPH_SHAPES:
+                    del self.graphs[next(iter(self.graphs))]
+            else:
+                for mine, new in zip(captured.inputs, (ids, mask, labels)):
+                    mine.copy_(new)
+            for module, generators in captured.dropout:
+                module.seed_generators(generators, seed, state.step)
+            captured.forward_backward.replay()
+            loss = captured.loss.detach().clone()
+        with profiling.span("train.optimizer", device=ids.device):
+            if opt_state is None:
+                opt_state = state.tx.load(state.opt_state, state.params)
+            captured.update.replay()
+        profiling.count("train.graph_replays")
+        return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), loss
+
+    def _side_stream(self, device: torch.device):
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+        return self.stream
+
+    def _side_forward_backward(self, params: List[torch.Tensor], ids, mask, labels):
+        """The forward and backward eagerly on the graphs' stream, their
+        outputs freed on the current stream after their last use there."""
+        main = torch.cuda.current_stream(ids.device)
+        side = self._side_stream(ids.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            loss, grads = _forward_backward(self.model, params, ids, mask, labels)
+        main.wait_stream(side)
+        for t in (loss, *grads):
+            t.record_stream(main)
+        return loss, grads
+
+    def _warm_up(self, key, state: TrainState, ids, mask, labels):
+        with profiling.span("train.fwd_bwd", device=ids.device):
+            loss, grads = self._side_forward_backward(list(state.params.values()),
+                                                      ids, mask, labels)
+        self.applications[key] = [(m, m.applied) for m in self.model.modules()
+                                  if isinstance(m, Dropout) and m.applied]
+        return state.apply_gradients(dict(zip(state.params, grads))), loss.detach()
+
+    def _capture(self, key, state: TrainState, ids, mask, labels) -> _Captured:
+        device, stream = ids.device, self._side_stream(ids.device)
+        params = list(state.params.values())
+        forward_backward, update = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        dropout = [(m, [torch.Generator(device=device) for _ in range(n)])
+                   for m, n in self.applications[key]]
+        for _, generators in dropout:
+            for gen in generators:
+                forward_backward.register_generator_state(gen)
+        inputs = tuple(t.clone() for t in (ids, mask, labels))
+        for module, generators in dropout:
+            module.generators = generators
+        try:
+            with torch.cuda.graph(forward_backward, pool=self.pool, stream=stream):
+                loss, grads = _forward_backward(self.model, params, *inputs)
+        finally:
+            for module, _ in dropout:
+                module.generators = None
+        if any(module.applied != len(generators) for module, generators in dropout):
+            raise RuntimeError("the captured step applied dropout other than its eager "
+                               "first step did")
+        if self.pool is None:
+            self.pool = forward_backward.pool()
+        with torch.cuda.graph(update, pool=self.pool, stream=stream):
+            _apply_update(state.tx, state.opt_state, state.params, grads)
+        return _Captured(forward_backward, update, inputs, loss, dropout, _bindings(state))
+
+
+def make_reader_train_step(model: FiDT5, backend: str = "flax",
+                           cuda_graphs: bool = True) -> Callable:
     """``(state, ids, mask, labels, seed) -> (state, loss)``.
 
     ``state.params`` must be ``model``'s own parameters (:func:`model_params`);
@@ -68,25 +249,30 @@ def make_reader_train_step(model: FiDT5, backend: str = "flax") -> Callable:
     state.step)``, as the JAX step folds the step into its key. backend:
     "flax" or "scan". In the JAX package "scan" is a compile-time layout
     (``lax.scan`` over stacked layers) with the same loss; eager PyTorch has
-    nothing to compile, so both run this same step. The forward and backward
+    nothing to compile, so both run this same step. On a CUDA device, for an
+    optimizer whose update a CUDA graph can capture (``tx.load``), the step
+    replays two graphs from a shape's second call on, the forward and
+    backward and the update (:class:`_StepGraphs`; the same kernels and
+    masks as the eager step); other optimizers, CPU tensors and
+    ``cuda_graphs=False`` run the step eagerly. The forward and backward
     are the stream span ``train.fwd_bwd``, the update ``train.optimizer``
-    (core/profiling.py).
+    (core/profiling.py). The step's ``release()`` drops its graphs and their
+    memory, as before an eval.
     """
     if backend not in ("flax", "scan"):
         raise ValueError(f"unknown train backend {backend!r}")
+    graphs = _StepGraphs(model) if cuda_graphs else None
 
     def train_step(state: TrainState, ids, mask, labels, seed: int):
         model.train()
         set_dropout_key(model, seed, state.step)
-        names = list(state.params)
-        params = [state.params[n] for n in names]
-        with profiling.span("train.fwd_bwd", device=ids.device):
-            loss, _, _ = model(ids, mask, labels)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-            grads = {n: torch.zeros_like(p) if g is None else g
-                     for n, p, g in zip(names, params, grads)}
-        return state.apply_gradients(grads), loss.detach()
+        if graphs is not None and ids.is_cuda and state.tx.load is not None:
+            out = graphs(state, ids, mask, labels, seed)
+            if out is not None:
+                return out
+        return _eager_step(model, state, ids, mask, labels)
 
+    train_step.release = graphs.release if graphs is not None else lambda: None
     return train_step
 
 
@@ -271,6 +457,7 @@ def train_reader(
             continue
 
         patience += 1
+        train_step.release()   # the eval's working set takes the graphs' memory
         model.eval()
         # the engine stacks the decoder weights when it is built: build it anew
         generate_fn = make_best_generate_fn(

@@ -13,14 +13,16 @@ import numpy as np
 import pytest
 import torch
 
+from lako_tpu_torch.core import profiling
 from lako_tpu_torch.core.config import OptimConfig, T5Config
 from lako_tpu_torch.models.t5 import init_fid_t5
 from lako_tpu_torch.models.t5.engine import DecodeEngine, _quantize_kv
+from lako_tpu_torch.models.t5.layers import Dropout, _mix
 from lako_tpu_torch.ops import adam8_kernel as k5
 from lako_tpu_torch.ops import decode_cross_attn as k3
 from lako_tpu_torch.ops import flash_attention as k4
 from lako_tpu_torch.ops import flash_streamed as k1
-from lako_tpu_torch.train.optim import make_optimizer
+from lako_tpu_torch.train.optim import GradientTransformation, make_optimizer
 from lako_tpu_torch.train.reader import make_reader_train_step, model_params
 from lako_tpu_torch.train.state import TrainState
 
@@ -878,21 +880,25 @@ def test_fused_adafactor_matches_plain(cuda_device, grad_scale):
 
 def test_fused_adafactor_wrapper_refuses_what_it_cannot_take(cuda_device):
     """K7's wrapper launches or raises: a bfloat16, a non-contiguous or a
-    misshapen CUDA tensor raises."""
+    misshapen CUDA tensor raises, and so do step values off the card."""
     from lako_tpu_torch.ops import adafactor_kernel as k7
 
     def call(g, p, vr, vc, v):
-        k7.fused_adafactor_update(["a/kernel"], [g], [p], [vr], [vc], [v], clip=1.0, lr=1e-3,
-                                  decay=0.5, keep=0.5)
+        k7.fused_adafactor_update(["a/kernel"], [g], [p], [vr], [vc], [v], clip=1.0,
+                                  values=values)
 
     dev = cuda_device
     g, p = torch.ones(256, 128, device=dev), torch.ones(256, 128, device=dev)
     vr, vc, v = torch.zeros(128, device=dev), torch.zeros(256, device=dev), torch.zeros(1, device=dev)
+    values = torch.tensor([0.5, 0.5, 1e-3], device=dev)
     call(g, p, vr, vc, v)
     for bad in ((g.bfloat16(), p, vr, vc, v), (torch.ones(128, 256, device=dev).t(), p, vr, vc, v),
                 (g, p, torch.zeros(256, device=dev), vc, v)):
         with pytest.raises(ValueError):
             call(*bad)
+    values = values.cpu()
+    with pytest.raises(ValueError):
+        call(g, p, vr, vc, v)
 
 
 def test_adamw8bit_train_step_on_the_fused_route(cuda_device):
@@ -1111,3 +1117,237 @@ def test_bert_forward_on_the_card_matches_the_cpu(cuda_device):
         bf16.load_state_dict(cpu.state_dict())
         score = bf16(*(a.to(cuda_device) for a in args))[2]
     np.testing.assert_allclose(score.float().cpu().numpy(), want[2].numpy(), rtol=0, atol=0.125)
+
+
+# ---- the train step as CUDA graphs -----------------------------------------
+
+
+def _graph_counts(t0):
+    """``train.graph_captures`` and ``train.graph_replays`` counted by the
+    process's recorder at or after ``t0``."""
+    out = {"train.graph_captures": 0, "train.graph_replays": 0}
+    for t, name, n in profiling.snapshot()["counts"]:
+        if t >= t0 and name in out:
+            out[name] += n
+    return out["train.graph_captures"], out["train.graph_replays"]
+
+
+def _dropout_model(dev):
+    """A tiny reader as the train cell runs it: dropout 0.1, remat, bf16
+    compute over f32 masters."""
+    cfg = T5Config(vocab_size=64, d_model=128, d_kv=64, d_ff=256, num_layers=2,
+                   num_decoder_layers=2, num_heads=2, relative_attention_num_buckets=8,
+                   dropout_rate=0.1)
+    return init_fid_t5(cfg, torch.Generator(device=dev).manual_seed(0), torch.bfloat16,
+                       use_remat=True)
+
+
+def _train_batches(dev, n, N=2, seed=3):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(n):
+        ids = torch.randint(1, 64, (4, N, 40), generator=gen, device=dev)
+        mask = torch.rand(4, N, 40, generator=gen, device=dev) < 0.8
+        mask[..., 0] = True
+        labels = torch.randint(1, 64, (4, 6), generator=gen, device=dev)
+        labels[0, 4:] = -100
+        out.append((ids, mask, labels))
+    return out
+
+
+def _optimizer(name, seen=None):
+    """``name``'s transform (a linear schedule: the learning rate moves
+    every step); with ``seen``, each update first keeps a copy of the
+    gradients it is handed (K7 writes its updates into them), which a
+    captured update refreshes at every replay."""
+    tx = make_optimizer(OptimConfig(optim=name, lr=1e-3, warmup_steps=2, total_steps=100))
+    if seen is None:
+        return tx
+
+    def update(grads, state, params=None):
+        seen.append({k: g.clone() for k, g in grads.items()})
+        return tx.update(grads, state, params)
+
+    return GradientTransformation(tx.init, update, tx.load)
+
+
+@pytest.mark.parametrize("optim_name", ["adafactor", "adamw"])
+def test_graphed_train_step_equals_eager(cuda_device, optim_name):
+    """Four steps from one init with dropout 0.1 and remat, graphed (an eager
+    first step, a capture, two replays of the forward and backward and of
+    K7's update) and with ``cuda_graphs=False``: every loss, every gradient
+    and every parameter after each update bitwise equal. AdamW's update no
+    graph captures: its step stays eager, with nothing captured."""
+    runs = []
+    for graphed in (True, False):
+        model = _dropout_model(cuda_device)
+        seen = []
+        state = TrainState.create(model_params(model), _optimizer(optim_name, seen))
+        step = make_reader_train_step(model, cuda_graphs=graphed)
+        t0 = profiling.now()
+        losses, grads, params = [], [], []
+        for batch in _train_batches(cuda_device, 4):
+            state, loss = step(state, *batch, 7)
+            losses.append(loss)
+            grads.append({k: g.clone() for k, g in seen[-1].items()})
+            params.append({k: p.detach().clone() for k, p in state.params.items()})
+        assert state.step == 4
+        captured = graphed and optim_name == "adafactor"
+        assert _graph_counts(t0) == ((1, 3) if captured else (0, 0))
+        assert len(seen) == (2 if captured else 4)
+        runs.append((losses, grads, params))
+    (got_l, got_g, got_p), (want_l, want_g, want_p) = runs
+    for k in range(4):
+        assert torch.equal(got_l[k], want_l[k]), k
+        for name in want_g[k]:
+            assert torch.equal(got_g[k][name], want_g[k][name]), (k, name)
+            assert torch.equal(got_p[k][name], want_p[k][name]), (k, name)
+    assert len(set(got_l[k].item() for k in range(4))) == 4
+    assert len(set(float(got_g[k][name].norm()) for k in range(4))) == 4
+
+
+def test_graphed_step_holds_no_gradients_between_steps(cuda_device):
+    """Between steps the allocator counts no gradient of the graphed step:
+    after the capture it holds only the graphs' static inputs and loss and
+    their dropout generators' state, under a tenth of the gradients'
+    bytes, the same after every replay; the eager step holds nothing more
+    after its first step."""
+    for graphed in (True, False):
+        model = _dropout_model(cuda_device)
+        state = TrainState.create(model_params(model), _optimizer("adafactor"))
+        step = make_reader_train_step(model, cuda_graphs=graphed)
+        held = []
+        for batch in _train_batches(cuda_device, 4):
+            state, loss = step(state, *batch, 7)
+            del loss
+            torch.cuda.synchronize()
+            held.append(torch.cuda.memory_allocated())
+        grads = sum(p.numel() * p.element_size() for p in model.parameters())
+        assert held[1] == held[2] == held[3], held
+        assert (0 < held[1] - held[0] < grads / 10) if graphed else held[1] == held[0], held
+        del model, state, step
+
+
+def test_graphed_dropout_masks_are_the_eager_draws(cuda_device):
+    """Every dropout application's mask, read from inside the graph's
+    replays: ``rand(shape, generator seeded _mix(seed, step, site)) < 1 -
+    rate`` bitwise at the eager first step, the capturing step and two
+    replays, for the forward's draw and the remat recompute's (the encoder
+    blocks' sites, drawn twice a step)."""
+    model = _dropout_model(cuda_device)
+    state = TrainState.create(model_params(model), _optimizer("adafactor"))
+    step = make_reader_train_step(model)
+    kept = {}      # (module, application) -> that application's mask
+
+    def keeping(module):
+        draw = module.keep_mask
+
+        def keep_mask(x):
+            application = module.applied
+            keep = draw(x)
+            mine = kept.get((module, application))
+            if mine is None:          # the eager first step: outside any capture
+                kept[module, application] = keep.clone()
+            else:
+                mine.copy_(keep)
+            return keep
+
+        return keep_mask
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.keep_mask = keeping(m)
+    seed, t0 = 11, profiling.now()
+    for k, batch in enumerate(_train_batches(cuda_device, 4)):
+        state, _ = step(state, *batch, seed)
+        torch.cuda.synchronize()
+        for (m, application), mask in kept.items():
+            gen = torch.Generator(device=cuda_device).manual_seed(_mix(seed, k, m.site))
+            want = torch.rand(mask.shape, generator=gen, device=cuda_device) < 1.0 - m.rate
+            assert torch.equal(mask, want), (k, m.site, application)
+    assert _graph_counts(t0) == (1, 3)
+    encoder = {m.site for block in model.t5.encoder.blocks for m in block.modules()
+               if isinstance(m, Dropout)}
+    assert {m.site for m, application in kept if application == 1} == encoder
+    assert len(encoder) == 8 and len({m for m, _ in kept}) == 8 + 2 + 2 * 6 + 2
+
+
+def test_train_graph_captures_once_a_shape(cuda_device):
+    """One capture a shape: a second shape (another n_context) runs eagerly
+    once, then captures, and the first shape replays its graphs again; a
+    rebound parameter makes each shape capture again, into a new pool when
+    its graphs were the only ones, and so does ``release``. The losses are
+    the eager twin's at every call, each a tensor of its own."""
+    a, b = _train_batches(cuda_device, 3), _train_batches(cuda_device, 2, N=3, seed=4)
+    calls = [(a[0], (0, 0)), (a[1], (1, 1)), ("rebind", None), (a[2], (2, 2)),
+             (b[0], (2, 2)), (b[1], (3, 3)), (a[0], (3, 4)), ("rebind", None),
+             (a[1], (4, 5)), (b[0], (5, 6)), ("release", None), (a[2], (6, 7))]
+    runs = []
+    for graphed in (True, False):
+        model = _dropout_model(cuda_device)
+        state = TrainState.create(model_params(model), _optimizer("adafactor"))
+        step = make_reader_train_step(model, cuda_graphs=graphed)
+        t0, losses = profiling.now(), []
+        for batch, counts in calls:
+            if batch == "rebind":
+                for p in model.parameters():
+                    p.data = p.data.clone()
+                continue
+            if batch == "release":
+                step.release()
+                continue
+            state, loss = step(state, *batch, 5)
+            losses.append(loss)
+            assert _graph_counts(t0) == (counts if graphed else (0, 0))
+        runs.append(losses)
+    assert len({loss.data_ptr() for loss in runs[0]}) == len(runs[0])
+    for got, want in zip(*runs):
+        assert torch.equal(got, want)
+
+
+def test_train_reader_trains_through_the_graph(cuda_device, monkeypatch):
+    """``train_reader`` on the fixture with dropout 0.1 and Adafactor on
+    f32 masters: the graphs dropped before each epoch's eval and captured
+    again after it (one capture an epoch, a replay for every step but the
+    first), and the same history as with the step run eagerly."""
+    import importlib.util
+    from pathlib import Path
+
+    from lako_tpu_torch.core.config import ReaderDataConfig, ReaderTrainConfig
+    from lako_tpu_torch.text.tokenizer import WordVocabTokenizer
+    from lako_tpu_torch.train import reader as reader_mod
+
+    spec = importlib.util.spec_from_file_location(   # a site package may own ``tests``
+        "lako_fixtures", Path(__file__).resolve().parent / "fixtures.py")
+    fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixtures)
+    tok = WordVocabTokenizer.build(fixtures.corpus_sentences())
+    t5 = T5Config(vocab_size=tok.vocab_size, d_model=128, d_kv=64, d_ff=256, num_layers=2,
+                  num_decoder_layers=2, num_heads=2, relative_attention_num_buckets=8,
+                  dropout_rate=0.1)
+    cfg = ReaderTrainConfig(
+        model_size="tiny", per_device_batch_size=4, eval_batch_size=8, epochs=3,
+        early_stop=5, eval_max_length=4, use_remat=True, dtype="bfloat16",
+        data=ReaderDataConfig(n_context=2, text_maxlength=20, answer_maxlength=4),
+        optim=OptimConfig(optim="adafactor", lr=1e-2, weight_decay=0.0),
+        checkpoint_dir="/nonexistent", name="card")
+    train = fixtures.make_examples(16, n_facts=3, seed=0)
+    evals = fixtures.make_examples(8, n_facts=3, seed=1)
+    histories = []
+    for graphed in (True, False):
+        if not graphed:
+            eager = reader_mod.make_reader_train_step
+            monkeypatch.setattr(reader_mod, "make_reader_train_step",
+                                lambda model, backend="flax": eager(model, backend,
+                                                                    cuda_graphs=False))
+        t0 = profiling.now()
+        result = reader_mod.train_reader(cfg, train, evals, tok, t5_config=t5,
+                                         save_checkpoints=False, device=cuda_device)
+        steps = result.final_step
+        assert steps == 12
+        assert _graph_counts(t0) == ((3, steps - 1) if graphed else (0, 0))
+        histories.append([{k: v for k, v in h.items() if k != "seconds"}
+                          for h in result.history])
+    assert histories[0] == histories[1]
+    losses = [h["loss"] for h in histories[0]]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
