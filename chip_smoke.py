@@ -1264,8 +1264,7 @@ def eager_twin(service):
     twin._generate = DecodeEngine(
         eng.model, max_length=eng.max_length, kv_dtype=eng.kv_dtype,
         weights_dtype=eng.weights_dtype, fused_cross=eng.fused_cross,
-        chunk_size=eng.chunk_size, self_cache_layout=eng.self_cache_layout,
-        cuda_graphs=False).generate
+        chunk_size=eng.chunk_size, cuda_graphs=False).generate
     return twin
 
 
@@ -3393,8 +3392,8 @@ def run_hf_warm_start(dev):
         first = []
         make_step = reader_mod.make_reader_train_step
 
-        def recording(model, backend="flax"):
-            step = make_step(model, backend)
+        def recording(model):
+            step = make_step(model)
 
             def run(state, ids, mask, labels, seed):
                 state, loss = step(state, ids, mask, labels, seed)

@@ -18,9 +18,8 @@ step launches nothing for them; a homogeneous decoder's step is unchanged.
 Layouts are the JAX engine's: the cross K/V are ``(cross layers, B, hk, d,
 K)`` with the key axis minor, the layout the int8 kernel reads (hk is 1
 under multi-query cross-attention), and the self-attention cache is
-``(layers, B, h, d, S)`` (``self_cache_layout="ds"``) or ``(layers, B, h, S,
-d)`` (``"sd"``). The cache is written in place, one column per layer per
-step, after that layer has read it.
+``(layers, B, h, d, S)``. The cache is written in place, one column per
+layer per step, after that layer has read it.
 
 ``kv_dtype="int8"`` stores the cross K/V as symmetric int8 with one scale per
 (layer, row, head, channel). With ``fused_cross=True`` each step after the
@@ -359,15 +358,12 @@ class DecodeEngine:
                  weights_dtype: str = "native",   # "native" | "int8"
                  fused_cross: bool = False,       # CUDA int8 cross-attention kernel
                  chunk_size: Optional[int] = None,
-                 self_cache_layout: str = "ds",   # "ds" (B,h,d,S) | "sd" (B,h,S,d)
                  cuda_graphs: bool = True):
         cfg = model.config
         if kv_dtype not in ("native", "int8", "int8mxu"):
             raise ValueError(f"kv_dtype must be native|int8|int8mxu, got {kv_dtype!r}")
         if weights_dtype not in ("native", "int8"):
             raise ValueError(f"weights_dtype must be native|int8, got {weights_dtype!r}")
-        if self_cache_layout not in ("ds", "sd"):
-            raise ValueError(f"self_cache_layout must be ds|sd, got {self_cache_layout!r}")
         device = model_device(model)
         if fused_cross and device.type == "cuda" and (
                 kv_dtype != "int8" or cfg.multiquery_cross_attention):
@@ -382,7 +378,6 @@ class DecodeEngine:
         self.kv_dtype = kv_dtype
         self.weights_dtype = weights_dtype
         self.fused_cross = fused_cross
-        self.self_cache_layout = self_cache_layout
         # one chunk that covers every step is the unchunked program
         if chunk_size is not None and chunk_size >= self.steps:
             chunk_size = None
@@ -436,9 +431,9 @@ class DecodeEngine:
         st = self._batches.get((B, K))
         if st is None:
             l, h, d, S = cfg.num_decoder_layers, cfg.num_heads, cfg.d_kv, self.steps
-            shape = (l, B, h, d, S) if self.self_cache_layout == "ds" else (l, B, h, S, d)
             dev = cross_bias.device
-            caches = tuple(torch.zeros(shape, dtype=self.dtype, device=dev) for _ in range(2))
+            caches = tuple(torch.zeros((l, B, h, d, S), dtype=self.dtype, device=dev)
+                           for _ in range(2))
             st = _Batch(caches,
                         tuple(Quantized(torch.empty_like(c.values), torch.empty_like(c.scale))
                               if isinstance(c, Quantized) else torch.empty_like(c)
@@ -503,7 +498,6 @@ class DecodeEngine:
         sk, sv = st.caches
         h, d = cfg.num_heads, cfg.d_kv
         eps = cfg.layer_norm_epsilon
-        ds = self.self_cache_layout == "ds"
         x = _take_embedding(sd.embedding, tok, dtype)           # (B, H)
         B = x.shape[0]
         # positions after `step` are not written yet: additive NEG_INF
@@ -515,20 +509,12 @@ class DecodeEngine:
             xn = _rms(x, sd.ln_self[i], eps, dtype)
             qkv = _mm(xn, _layer(sd.wqkv_self, i), dtype).reshape(B, 3, h, d)
             q, k_new, v_new = qkv[:, 0], qkv[:, 1], qkv[:, 2]
-            if ds:
-                logits = torch.einsum("bhd,bhds->bhs", q, sk[i]).float()
-            else:
-                logits = torch.einsum("bhd,bhsd->bhs", q, sk[i]).float()
+            logits = torch.einsum("bhd,bhds->bhs", q, sk[i]).float()
             logits[..., step] = (q * k_new).sum(dim=-1).float()
             probs = torch.softmax(logits + self_bias, dim=-1).to(dtype)
-            if ds:
-                out = torch.einsum("bhs,bhds->bhd", probs, sv[i])
-                sk[i, ..., step] = k_new
-                sv[i, ..., step] = v_new
-            else:
-                out = torch.einsum("bhs,bhsd->bhd", probs, sv[i])
-                sk[i, :, :, step] = k_new
-                sv[i, :, :, step] = v_new
+            out = torch.einsum("bhs,bhds->bhd", probs, sv[i])
+            sk[i, ..., step] = k_new
+            sv[i, ..., step] = v_new
             out = out + probs[..., step:step + 1] * v_new
             x = x + _mm(out.reshape(B, h * d), _layer(sd.wo_self, i), dtype)
 
@@ -565,10 +551,7 @@ class DecodeEngine:
 
     def _clear_column(self, st: _Batch, step: int) -> None:
         for c in st.caches:
-            if self.self_cache_layout == "ds":
-                c[..., step] = 0
-            else:
-                c[:, :, :, step] = 0
+            c[..., step] = 0
 
     def _capture(self, st: _Batch, start: int, n: int) -> _Chunk:
         """Capture the chunk (start, n) of this batch shape as a CUDA graph.
@@ -649,11 +632,9 @@ def make_engine_generate_fn(model: FiDT5, max_length: int = 50,
                             kv_dtype: str = "native",
                             weights_dtype: str = "native",
                             fused_cross: bool = False,
-                            chunk_size: Optional[int] = None,
-                            self_cache_layout: str = "ds"):
+                            chunk_size: Optional[int] = None):
     """(input_ids, mask) → (tokens, cross_logits | None) through the engine."""
     return DecodeEngine(model, max_length=max_length,
                         collect_cross_scores=collect_cross_scores,
                         kv_dtype=kv_dtype, weights_dtype=weights_dtype,
-                        fused_cross=fused_cross, chunk_size=chunk_size,
-                        self_cache_layout=self_cache_layout).generate
+                        fused_cross=fused_cross, chunk_size=chunk_size).generate

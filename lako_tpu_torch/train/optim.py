@@ -56,15 +56,16 @@ Schedule = Union[float, Callable[[int], float]]
 
 class GradientTransformation(NamedTuple):
     """``init(params) -> state``; ``update(updates, state, params=None) ->
-    (updates, state)``. ``load``, where a CUDA graph can capture the update:
-    ``load(state, params)`` writes the values of ``state``'s step that the
-    update reads on the card (a launch on the current stream, before the
-    graph's replay) and returns the state the update returns, or None where
-    this tree's update cannot be captured. Under a capture ``update`` reads
-    those values and writes none."""
+    (updates, state)``. Where a CUDA graph can capture the update, ``update``
+    is two halves in turn: the host's ``load(state, params)`` writes the
+    step's values that the device half reads on the card (launches on the
+    current stream) and returns the next state, or None where this tree's
+    update cannot be captured; the card's ``apply(updates, state, params) ->
+    updates`` reads only tensors, which a graph can capture."""
     init: Callable[[Tree], Any]
     update: Callable[..., Tuple[Tree, Any]]
     load: Optional[Callable[[Any, Tree], Any]] = None
+    apply: Optional[Callable[[Tree, Any, Tree], Tree]] = None
 
 
 def _scalar(x: float, dtype: torch.dtype) -> float:
@@ -377,11 +378,6 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-def _capturing(t: torch.Tensor) -> bool:
-    """Whether a CUDA graph is capturing the current stream of ``t``'s card."""
-    return t.is_cuda and torch.cuda.is_current_stream_capturing()
-
-
 def clipped_adafactor(clip: float, lr: Schedule) -> GradientTransformation:
     """``chain(clip_by_global_norm(clip), adafactor(lr))``, its state and its
     results, routed on the tree it is handed:
@@ -396,8 +392,8 @@ def clipped_adafactor(clip: float, lr: Schedule) -> GradientTransformation:
       clip's scale squared where the chain sums the clipped squares; each
       update counts ``train.adafactor_fused`` (core/profiling.py). The
       step's decay, keep and lr reach K7 through a tensor on the card that
-      ``load`` writes, so a CUDA graph can capture the update
-      (:class:`GradientTransformation`); ``load`` counts the update then.
+      the host half ``load`` writes (and counts the update), so a CUDA graph
+      can capture the device half ``apply`` (:class:`GradientTransformation`).
     - Leaves on the CPU, and leaves on the card in another dtype (bfloat16
       masters), take the chain. There optax rounds the statistics in the
       leaf's dtype, a rounding the kernel does not re-derive.
@@ -413,38 +409,27 @@ def clipped_adafactor(clip: float, lr: Schedule) -> GradientTransformation:
                              f"{sorted((('card' if c else 'host'), str(d)) for c, d in kinds)}")
         return kinds == {(True, torch.float32)}
 
-    def advanced(state):
-        clip_state, inner = state
-        fact = inner.factored_rms
-        return (clip_state, inner._replace(factored_rms=fact._replace(count=fact.count + 1),
-                                           learning_rate=inner.learning_rate + 1))
-
-    def load(state, params: Tree):
-        if not fused(params):
-            return None
+    def advance(state, params: Tree):
         from lako_tpu_torch.ops.adafactor_kernel import step_values
 
-        _, inner = state
-        decay, keep = _factored_decay(inner.factored_rms.count)
+        clip_state, inner = state
+        fact = inner.factored_rms
+        decay, keep = _factored_decay(fact.count)
         step = _learning_rate(lr, inner.learning_rate)
         device = next(iter(params.values())).device
         if device not in values:
             values[device] = torch.zeros(3, dtype=torch.float32, device=device)
         step_values(values[device], float(decay), float(keep), _scalar(step, torch.float32))
         profiling.count("train.adafactor_fused")
-        return advanced(state)
+        return (clip_state, inner._replace(factored_rms=fact._replace(count=fact.count + 1),
+                                           learning_rate=inner.learning_rate + 1))
 
-    def update(updates: Tree, state, params: Optional[Tree] = None):
-        if params is None:
-            raise ValueError("params required for adafactor")
-        if not fused(updates, params):
-            return plain.update(updates, state, params)
+    def load(state, params: Tree):
+        return advance(state, params) if fused(params) else None
+
+    def apply(updates: Tree, state, params: Tree) -> Tree:
         from lako_tpu_torch.ops.adafactor_kernel import fused_adafactor_update
 
-        if _capturing(next(iter(updates.values()))):   # the replay's values: load's
-            state = advanced(state)
-        else:
-            state = load(state, params)
         paths, grads, seen = list(updates), [], set()
         for g in updates.values():
             if not g.is_contiguous():
@@ -458,9 +443,17 @@ def clipped_adafactor(clip: float, lr: Schedule) -> GradientTransformation:
                                [fact.v_row[k] for k in paths], [fact.v_col[k] for k in paths],
                                [fact.v[k] for k in paths], clip=clip,
                                values=values[grads[0].device])
-        return dict(zip(paths, grads)), state
+        return dict(zip(paths, grads))
 
-    return GradientTransformation(plain.init, update, load)
+    def update(updates: Tree, state, params: Optional[Tree] = None):
+        if params is None:
+            raise ValueError("params required for adafactor")
+        if not fused(updates, params):
+            return plain.update(updates, state, params)
+        state = advance(state, params)
+        return apply(updates, state, params), state
+
+    return GradientTransformation(plain.init, update, load, apply)
 
 
 def chain(*txs: GradientTransformation) -> GradientTransformation:

@@ -76,11 +76,10 @@ def _forward_backward(model: FiDT5, params: List[torch.Tensor], ids, mask, label
 
 
 def _apply_update(tx, opt_state, params: Dict[str, torch.Tensor], grads: List[torch.Tensor]):
-    """``tx``'s update of ``params`` in place, as a graph captures it; its
-    next state is ``tx.load``'s."""
+    """``tx``'s device half (``tx.apply``) on ``params`` in place, as a graph
+    captures it."""
     with torch.no_grad():
-        updates, _ = tx.update(dict(zip(params, grads)), opt_state, params)
-        apply_updates(params, updates)
+        apply_updates(params, tx.apply(dict(zip(params, grads)), opt_state, params))
 
 
 def _eager_step(model: FiDT5, state: TrainState, ids, mask, labels):
@@ -121,18 +120,18 @@ class _StepGraphs:
     binding), and notes each Dropout module's applications. Its second
     captures both graphs, and it and every later call copy the inputs into
     the graph's buffers, seed the graph's dropout generators (one an
-    application) from ``(seed, step)``, replay the forward and backward,
-    ``load`` the update's step values and replay the update. The gradients
-    are the first graph's outputs and the second's inputs, and no tensor
-    holds them between the graphs' captures and replays: like the
+    application) from ``(seed, step)``, replay the forward and backward, and
+    replay the update after its host half (``TrainState.replay_update``).
+    The gradients are the first graph's outputs and the second's inputs, and
+    no tensor holds them between the graphs' captures and replays: like the
     activations they are free blocks of the pool, which only a capture into
     the pool takes, and the allocator counts neither between steps, as for
-    an eager step. The loss is a copy. A shape whose parameters or
-    optimizer state no longer have the buffers it captured (a parameter
-    rebound, as ``.to(dtype)`` does), or whose optimizer changed, is
-    captured again. At most ``GRAPH_SHAPES`` shapes are kept, the
-    oldest dropped first; :meth:`release` drops them all and the pool.
-    Counters ``train.graph_captures`` and ``train.graph_replays``
+    an eager step. The loss is a copy. A shape whose parameters or optimizer
+    state no longer have the buffers it captured (a parameter rebound, as
+    ``.to(dtype)`` does), or whose optimizer changed, is captured again. At
+    most ``GRAPH_SHAPES`` shapes are kept, the oldest dropped first;
+    :meth:`release` drops them all and the pool. Counters
+    ``train.graph_captures`` and ``train.graph_replays``
     (core/profiling.py)."""
 
     def __init__(self, model: FiDT5):
@@ -163,7 +162,7 @@ class _StepGraphs:
         if captured is None:
             if key not in self.applications:
                 return self._warm_up(key, state, ids, mask, labels)
-            opt_state = state.tx.load(state.opt_state, state.params)
+            opt_state = state.load_update()
             if opt_state is None:
                 return None
         with profiling.span("train.fwd_bwd", device=ids.device):
@@ -179,12 +178,9 @@ class _StepGraphs:
                 module.seed_generators(generators, seed, state.step)
             captured.forward_backward.replay()
             loss = captured.loss.detach().clone()
-        with profiling.span("train.optimizer", device=ids.device):
-            if opt_state is None:
-                opt_state = state.tx.load(state.opt_state, state.params)
-            captured.update.replay()
+        state = state.replay_update(captured.update.replay, opt_state)
         profiling.count("train.graph_replays")
-        return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), loss
+        return state, loss
 
     def _side_stream(self, device: torch.device):
         if self.stream is None:
@@ -240,27 +236,21 @@ class _StepGraphs:
         return _Captured(forward_backward, update, inputs, loss, dropout, _bindings(state))
 
 
-def make_reader_train_step(model: FiDT5, backend: str = "flax",
-                           cuda_graphs: bool = True) -> Callable:
+def make_reader_train_step(model: FiDT5, cuda_graphs: bool = True) -> Callable:
     """``(state, ids, mask, labels, seed) -> (state, loss)``.
 
-    ``state.params`` must be ``model``'s own parameters (:func:`model_params`);
-    the step updates them in place. Dropout masks are drawn from ``(seed,
-    state.step)``, as the JAX step folds the step into its key. backend:
-    "flax" or "scan". In the JAX package "scan" is a compile-time layout
-    (``lax.scan`` over stacked layers) with the same loss; eager PyTorch has
-    nothing to compile, so both run this same step. On a CUDA device, for an
-    optimizer whose update a CUDA graph can capture (``tx.load``), the step
-    replays two graphs from a shape's second call on, the forward and
-    backward and the update (:class:`_StepGraphs`; the same kernels and
-    masks as the eager step); other optimizers, CPU tensors and
-    ``cuda_graphs=False`` run the step eagerly. The forward and backward
-    are the stream span ``train.fwd_bwd``, the update ``train.optimizer``
-    (core/profiling.py). The step's ``release()`` drops its graphs and their
-    memory, as before an eval.
+    ``state.params`` must be ``model``'s own parameters
+    (:func:`model_params`); the step updates them in place. Dropout masks
+    are drawn from ``(seed, state.step)``, as the JAX step folds the step
+    into its key. On a CUDA device, for an optimizer whose update a CUDA
+    graph can capture (``tx.load``), the step replays two graphs from a
+    shape's second call on, the forward and backward and the update
+    (:class:`_StepGraphs`; the same kernels and masks as the eager step);
+    other optimizers, CPU tensors and ``cuda_graphs=False`` run the step
+    eagerly. The forward and backward are the stream span ``train.fwd_bwd``,
+    the update ``train.optimizer`` (core/profiling.py). The step's
+    ``release()`` drops its graphs and their memory, as before an eval.
     """
-    if backend not in ("flax", "scan"):
-        raise ValueError(f"unknown train backend {backend!r}")
     graphs = _StepGraphs(model) if cuda_graphs else None
 
     def train_step(state: TrainState, ids, mask, labels, seed: int):
@@ -343,6 +333,8 @@ class ReaderTrainResult:
 
 
 def _refuse_unported(cfg: ReaderTrainConfig, mesh) -> None:
+    if cfg.train_backend not in ("flax", "scan"):
+        raise ValueError(f"unknown train backend {cfg.train_backend!r}")
     if cfg.mesh.pipe > 1:
         raise NotImplementedError("mesh.pipe > 1: pipeline parallelism is not ported yet "
                                   "(ROADMAP item 12)")
@@ -416,7 +408,7 @@ def train_reader(
         elif not reset_params:
             logger.warning("requested optimizer resume but checkpoint has no optimizer "
                            "state; starting fresh")
-    train_step = make_reader_train_step(model, backend=cfg.train_backend)
+    train_step = make_reader_train_step(model)
     ckpt_dir = f"{cfg.checkpoint_dir}/{cfg.name}"
 
     def save(name: str) -> None:

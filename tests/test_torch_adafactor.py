@@ -13,7 +13,8 @@ card's route taken on CPU tensors by patching ``optim._on_card``). K7's
 plan follows ``_factored_dims`` on every leaf of a t5-3b-shaped tree, built
 from shapes alone; the fused route writes into the caller's buffers, a
 mixed tree raises, and bf16 masters keep the chain. The fused route's
-state is the chain's, node for node. The state round-trips
+state is the chain's, node for node, and its update is its host half
+``load`` and device half ``apply`` in turn, bitwise. The state round-trips
 bitwise through ``opt_state.pt``, and a full resume through
 ``train_reader`` continues as the uninterrupted run does, bitwise.
 """
@@ -141,6 +142,11 @@ def _card_route(monkeypatch):
     monkeypatch.setattr(optim, "_on_card", lambda t: True)
 
 
+def _fused_count(start):
+    return sum(n for t, name, n in profiling.snapshot()["counts"]
+               if name == "train.adafactor_fused" and t >= start)
+
+
 CASES = [(tree, accumulation, route) for route in ("chain", "fused")
          for tree, accumulation in (("leaves", 1), ("leaves", 2), ("t5", 1), ("t5", 2))]
 
@@ -156,9 +162,7 @@ def test_adafactor_matches_optax(tree, accumulation, route, monkeypatch):
     jax_params = _leaf_params() if tree == "leaves" else _t5_params()
     start = profiling.now()
     jparams, jfact, params, fact = _run_both(jax_params, accumulation)
-    fused = sum(n for t, name, n in profiling.snapshot()["counts"]
-                if name == "train.adafactor_fused" and t >= start)
-    assert fused == (3 if route == "fused" else 0)
+    assert _fused_count(start) == (3 if route == "fused" else 0)
     assert fact.count == int(jfact.count) == 3
     jflat = _flat(jax.tree_util.tree_map(np.asarray, jparams))
     assert set(params) == set(jflat)
@@ -369,6 +373,49 @@ def test_fused_route_updates_in_the_callers_buffers(monkeypatch):
     assert upd["a/weight"] is shared and upd["b/weight"] is not shared
 
 
+@pytest.mark.parametrize("steps", [1, 3])
+@pytest.mark.parametrize("clip", [1.0, 1e4], ids=["clip-fires", "clip-idle"])
+def test_host_and_device_halves_are_the_update(clip, steps, monkeypatch):
+    """The fused route's update as a CUDA graph runs it: the host half
+    ``load`` (the step's values, the next state) and then the device half
+    ``apply``, handed the first step's state every step as a graph captured
+    it. Updates, statistics, counts and parameters bitwise those of
+    ``update``, under a learning rate that moves every step, the clip
+    firing or not, and ``train.adafactor_fused`` counted once an update."""
+    _card_route(monkeypatch)
+    params = {k: _port(k, v) for k, v in _flat(_leaf_params()).items()}
+    g = torch.Generator().manual_seed(6)
+    grads = [{k: torch.randn(p.shape, generator=g) for k, p in params.items()}
+             for _ in range(steps)]
+    norms = [math.sqrt(sum(float((x * x).sum()) for x in gr.values())) for gr in grads]
+    assert all((norm >= clip) == (clip == 1.0) for norm in norms)
+    runs = []
+    for split in (True, False):
+        tx = optim.clipped_adafactor(clip, optim.warmup_linear_schedule(1e-2, 0, 10))
+        mine = {k: p.clone() for k, p in params.items()}
+        state = first = tx.init(mine)
+        start, updates = profiling.now(), []
+        for gr in grads:
+            gr = {k: v.clone() for k, v in gr.items()}
+            if split:
+                state = tx.load(state, mine)
+                upd = tx.apply(gr, first, mine)
+            else:
+                upd, state = tx.update(gr, state, mine)
+            updates.append({k: u.clone() for k, u in upd.items()})
+            optim.apply_updates(mine, upd)
+        assert _fused_count(start) == steps
+        runs.append((updates, flatten_tree(state), mine))
+    (got_u, got_s, got_p), (want_u, want_s, want_p) = runs
+    assert [u.keys() for u in got_u] == [u.keys() for u in want_u]
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(got_u, want_u) for k in a)
+    assert got_s.keys() == want_s.keys()
+    assert all(torch.equal(v, want_s[k]) if isinstance(v, torch.Tensor) else v == want_s[k]
+               for k, v in got_s.items())
+    assert all(torch.equal(got_p[k], want_p[k]) for k in want_p)
+    assert max(float(u.abs().max()) for u in got_u[-1].values()) > 0
+
+
 def _node_types(tree):
     """The type of every tuple node of a state, depth first."""
     if isinstance(tree, tuple):
@@ -425,8 +472,9 @@ def test_mixed_tree_raises(monkeypatch):
 
 
 def test_bf16_masters_keep_the_chain(monkeypatch):
-    """bfloat16 masters on the card's route take the chain, bitwise, and
-    count no fused update."""
+    """bfloat16 masters on the card's route take the chain, bitwise, have no
+    host half for a graph (``load`` gives None) and count no fused
+    update."""
     _card_route(monkeypatch)
     params = {k: _port(k, v).to(torch.bfloat16) for k, v in _flat(_leaf_params()).items()}
     tx = optim.clipped_adafactor(1.0, 1e-2)
@@ -434,6 +482,7 @@ def test_bf16_masters_keep_the_chain(monkeypatch):
     state, chain_state = tx.init(params), chain.init(params)
     g = torch.Generator().manual_seed(5)
     start = profiling.now()
+    assert tx.load(state, params) is None
     for _ in range(2):
         grads = {k: torch.randn(p.shape, generator=g).to(torch.bfloat16) for k, p in params.items()}
         upd, state = tx.update(grads, state, params)
@@ -442,8 +491,7 @@ def test_bf16_masters_keep_the_chain(monkeypatch):
     assert flatten_tree(state).keys() == flatten_tree(chain_state).keys()
     assert all(torch.equal(v, flatten_tree(chain_state)[k]) if isinstance(v, torch.Tensor)
                else v == flatten_tree(chain_state)[k] for k, v in flatten_tree(state).items())
-    assert not [n for t, name, n in profiling.snapshot()["counts"]
-                if name == "train.adafactor_fused" and t >= start]
+    assert _fused_count(start) == 0
 
 
 def test_k7_builds_as_its_own_library(monkeypatch, tmp_path):

@@ -413,8 +413,7 @@ def _captured_steps(engine):
 
 @pytest.mark.parametrize("chunk_size", [None, 2])
 @pytest.mark.parametrize("kw", [dict(kv_dtype="int8", fused_cross=True), dict(),
-                                dict(kv_dtype="int8mxu", weights_dtype="int8",
-                                     self_cache_layout="sd")])
+                                dict(kv_dtype="int8mxu", weights_dtype="int8")])
 def test_graphed_chunks_equal_eager(cuda_device, kw, chunk_size):
     """The token loop as CUDA graphs gives the eager loop's tokens, with and
     without K3, unchunked and chunked, on a first batch and on a second one
@@ -1157,9 +1156,10 @@ def _train_batches(dev, n, N=2, seed=3):
 
 def _optimizer(name, seen=None):
     """``name``'s transform (a linear schedule: the learning rate moves
-    every step); with ``seen``, each update first keeps a copy of the
-    gradients it is handed (K7 writes its updates into them), which a
-    captured update refreshes at every replay."""
+    every step); with ``seen``, each update, and each device half a graph
+    captures, first keeps a copy of the gradients it is handed (K7 writes
+    its updates into them), which a captured update refreshes at every
+    replay."""
     tx = make_optimizer(OptimConfig(optim=name, lr=1e-3, warmup_steps=2, total_steps=100))
     if seen is None:
         return tx
@@ -1168,7 +1168,11 @@ def _optimizer(name, seen=None):
         seen.append({k: g.clone() for k, g in grads.items()})
         return tx.update(grads, state, params)
 
-    return GradientTransformation(tx.init, update, tx.load)
+    def apply(grads, state, params):
+        seen.append({k: g.clone() for k, g in grads.items()})
+        return tx.apply(grads, state, params)
+
+    return GradientTransformation(tx.init, update, tx.load, apply if tx.apply else None)
 
 
 @pytest.mark.parametrize("optim_name", ["adafactor", "adamw"])
@@ -1338,8 +1342,7 @@ def test_train_reader_trains_through_the_graph(cuda_device, monkeypatch):
         if not graphed:
             eager = reader_mod.make_reader_train_step
             monkeypatch.setattr(reader_mod, "make_reader_train_step",
-                                lambda model, backend="flax": eager(model, backend,
-                                                                    cuda_graphs=False))
+                                lambda model: eager(model, cuda_graphs=False))
         t0 = profiling.now()
         result = reader_mod.train_reader(cfg, train, evals, tok, t5_config=t5,
                                          save_checkpoints=False, device=cuda_device)

@@ -200,20 +200,6 @@ def test_int8_contract_exact_past_1040_keys():
     torch.testing.assert_close(got.long(), want, rtol=0, atol=0)
 
 
-def test_sd_cache_layout_tokens_identical():
-    """self_cache_layout="sd": tokens identical to the JAX engine's and to
-    the port's "ds" layout."""
-    jm, params, model, ids, mask = _make(seed=3)
-    j_tok, j_xl = JaxDecodeEngine(jm, max_length=8, self_cache_layout="sd",
-                                  collect_cross_scores=True).generate(params, ids, mask)
-    tok, xl = _run_port(model, ids, mask, max_length=8, self_cache_layout="sd",
-                        collect_cross_scores=True)
-    ds, _ = _run_port(model, ids, mask, max_length=8)
-    np.testing.assert_array_equal(tok, np.asarray(j_tok))
-    np.testing.assert_array_equal(tok, ds)
-    np.testing.assert_allclose(xl, np.asarray(j_xl), rtol=1e-4, atol=1e-4)
-
-
 def test_unported_options_raise():
     """What the engine refuses, as the JAX engine refuses it; and
     make_generate_and_score_fn, ported, builds on the engine without
@@ -227,8 +213,6 @@ def test_unported_options_raise():
         DecodeEngine(model, kv_dtype="int4")
     with pytest.raises(ValueError, match="weights_dtype"):
         DecodeEngine(model, weights_dtype="int4")
-    with pytest.raises(ValueError, match="self_cache_layout"):
-        DecodeEngine(model, self_cache_layout="dd")
     fido = FiDT5(T5Config(vocab_size=64, d_model=32, d_kv=8, d_ff=64, num_layers=1,
                           num_decoder_layers=4, num_heads=4, cross_attention_stride=2))
     # the greedy engine runs FiDO (tests/test_torch_fido.py); the beam engine refuses it

@@ -338,6 +338,16 @@ def test_train_reader_unported_options_raise(change, item):
                      t5_config=t5, **kw)
 
 
+def test_train_reader_refuses_an_unknown_train_backend():
+    """``train_backend`` is "flax" or "scan", one step in the port, as the
+    JAX package's step checks it; another name raises where train_reader
+    reads the config."""
+    cfg, t5 = _fixture_config(port_config)
+    with pytest.raises(ValueError, match="unknown train backend 'jit'"):
+        train_reader(cfg.replace(train_backend="jit"), make_examples(4), [], _port_tokenizer(),
+                     t5_config=t5, save_checkpoints=False, device="cpu")
+
+
 @pytest.mark.parametrize("impl,warns", [("gather", True), ("allslots", False)])
 def test_train_reader_passes_self_attn_impl(impl, warns, caplog):
     """train_reader hands decode_self_attn_impl to make_best_generate_fn, as

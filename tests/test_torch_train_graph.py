@@ -136,11 +136,10 @@ class _StandInGraph:
     """A CUDA graph's stand-in. Capturing the forward and backward runs its
     Python (with the graph's generators handed to the Dropout modules) and
     keeps the outputs; capturing the update only keeps its arguments. A
-    replay runs the step again into the kept outputs, or the update as a
-    capture reads it (the values ``tx.load`` wrote)."""
+    replay runs the step again into the kept outputs, or the update's device
+    half (``tx.apply``, reading the values ``tx.load`` wrote)."""
 
     capturing = None
-    in_update = False
     pools = []      # the pool each capture was handed
 
     def __init__(self):
@@ -156,11 +155,7 @@ class _StandInGraph:
 
     def replay(self):
         if self.update is not None:
-            _StandInGraph.in_update = True
-            try:
-                _eager_apply_update(*self.update)
-            finally:
-                _StandInGraph.in_update = False
+            _eager_apply_update(*self.update)
             return
         model, params, inputs, dropout, loss, grads = self.step
         for module, generators in dropout:
@@ -220,7 +215,6 @@ def stand_in_graphs(monkeypatch):
                                                                               params, *batch))
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
     monkeypatch.setattr(torch.cuda, "graph", _stand_in_capture)
-    monkeypatch.setattr(optim, "_capturing", lambda t: _StandInGraph.in_update)
     monkeypatch.setattr(_StandInGraph, "pools", [])
 
 
@@ -295,8 +289,9 @@ def test_stand_in_graphs_keep_a_few_shapes(stand_in_graphs, monkeypatch):
 
 def test_stand_in_graphs_leave_an_update_they_cannot_capture(stand_in_graphs):
     """Adafactor on bfloat16 masters takes the eager chain, which no graph
-    captures (``tx.load`` gives None): after its first step a shape runs
-    eagerly, with nothing captured and the eager step's results."""
+    captures (``TrainState.load_update`` gives None): after its first step
+    a shape runs eagerly, with nothing captured and the eager step's
+    results."""
     calls = _batches(3)
     got_l, got_p, counts = _run(calls, graphed=True, dtype=torch.bfloat16)
     assert counts == [(0, 0)] * 3 and _StandInGraph.pools == []
