@@ -7,7 +7,8 @@
 2. Builds the CUDA kernels from ``lako_tpu_torch/csrc`` with nvcc and the
    host engines from ``lako_tpu_torch/csrc/host`` with g++ (a failed build
    fails the run) and, beside the build, prints the registers and spill bytes ptxas reports for each
-   kernel of ``PTXAS_SOURCES`` (K1, K4, the streamed backward, K3, K5/K6),
+   kernel of ``PTXAS_SOURCES`` (K1, K4, the streamed backward, K3, K5/K6, K7,
+   K8),
    and K5's SASS instruction count (cuobjdump -sass).
 3. Checks each kernel against its plain PyTorch version on the card, at the
    main path's shapes and in its working types, and times the kernel, the
@@ -39,7 +40,11 @@
    509 leaves (``run_adafactor``: three updates bitwise equal in a second
    run and within tolerance of the plain version, 4 launches an update,
    the scratch under 1% of the parameters and gradients; timed beside its
-   byte bound, the plain version and the eager chain).
+   byte bound, the plain version and the eager chain); K8 the decode
+   step's residual add and RMS norm (``check_add_rms_norm``: at 8 and 128
+   rows of 1024 and 128 of 2048, bf16, and with t5's f32 final-norm weight,
+   with and without the add, x_new bitwise and xn within one bf16 ulp of
+   the plain chain, bitwise in a second launch and from a CUDA graph).
 4. Floor proof: the port of the JAX package's 8-bit Adam micro-benchmark
    (``lako_tpu_torch.bench.adam8_micro``) times K5, K6 and the plain
    bf16-moment Adam update at the micro shape and prints the share of K5's
@@ -259,11 +264,21 @@ ANIMALS = ["cat", "dog", "cow", "duck", "frog", "bee", "owl", "wolf", "horse", "
 SOUNDS = ["meow", "woof", "moo", "quack", "croak", "buzz", "hoot", "howl", "neigh", "bleat"]
 
 
-# the sources whose kernels' registers and spills the run reports (ptxas -v)
 # the name of K3's kernel function (csrc/decode_cross_attn.cu) in a profiler trace
 K3_KERNEL = "decode_cross_kernel"
+# K8's (csrc/add_rms_norm.cu); its checked shapes (rows, H, weight dtype): the
+# served and evaluated t5-large steps, FiDO-XL's, the f32 final norm; its eps
+# (T5's layer_norm_epsilon); the share of xn's elements one bf16 ulp may part
+# from the plain version, the card tests' limit
+K8_KERNEL = "add_rms_norm_kernel"
+K8_SHAPES = ((8, 1024, torch.bfloat16), (128, 1024, torch.bfloat16),
+             (128, 2048, torch.bfloat16), (128, 1024, torch.float32))
+K8_EPS = 1e-6
+T5_LARGE_NORM_SITES = 73    # add_rms_norm launches a t5-large decode step
+K8_ULP_SHARE = 0.01
+# the sources whose kernels' registers and spills the run reports (ptxas -v)
 PTXAS_SOURCES = ("flash_streamed_fwd.cu", "fused_attention.cu", "flash_streamed_bwd.cu",
-                 "decode_cross_attn.cu", "adam8.cu", "adafactor.cu")
+                 "decode_cross_attn.cu", "adam8.cu", "adafactor.cu", "add_rms_norm.cu")
 
 
 def log(*args) -> None:
@@ -1036,6 +1051,7 @@ def counters():
     """Every kernel wrapper, by the name the summary line gives it."""
     from lako_tpu_torch.ops import adafactor_kernel as k7
     from lako_tpu_torch.ops import adam8_kernel as k5
+    from lako_tpu_torch.ops import add_rms_norm as k8
     from lako_tpu_torch.ops import decode_cross_attn as k3
     from lako_tpu_torch.ops import flash_attention as k4
     from lako_tpu_torch.ops import flash_streamed as k1
@@ -1049,7 +1065,8 @@ def counters():
             "fused_adam8_update_leaves": k5.fused_adam8_update_leaves,
             "fused_adam8_update": k5.fused_adam8_update,
             "adam8_ema_fragment": k5.adam8_ema_fragment,
-            "fused_adafactor_update": k7.fused_adafactor_update}
+            "fused_adafactor_update": k7.fused_adafactor_update,
+            "add_rms_norm": k8.add_rms_norm}
 
 
 def reset_counts() -> None:
@@ -1069,6 +1086,40 @@ def check_counts(what, launches, expected):
         f"; expected {{{', '.join(f'{n}: {c}' for n, c in want.items() if c)}}}, 0 elsewhere")
     if launches != want:
         raise AssertionError(f"{what} did not run each kernel as expected")
+
+
+def captured_steps(engine) -> int:
+    """The decode steps a greedy engine's CUDA graphs hold."""
+    return sum(n for st in engine._batches.values() for _, n in st.chunks)
+
+
+@contextlib.contextmanager
+def norm_site_tally():
+    """The norm sites of the decode steps that the greedy and beam engines
+    run on the host inside the block (step 0, the warm-up step, each step a
+    capture records; a replay runs none): K8's launches there, one a site.
+    Yields a list whose one element is the tally."""
+    from lako_tpu_torch.models.t5.beam_engine import BeamEngine
+    from lako_tpu_torch.models.t5.engine import DecodeEngine
+
+    tally = [0]
+    originals = {cls: cls._one_step for cls in (DecodeEngine, BeamEngine)}
+
+    def tallied(original, sites):
+        def one_step(engine, *args, **kw):
+            tally[0] += sites(engine)
+            return original(engine, *args, **kw)
+        return one_step
+
+    DecodeEngine._one_step = tallied(originals[DecodeEngine], lambda e: e.norm_sites)
+    # every layer of a beam engine's decoder cross-attends
+    BeamEngine._one_step = tallied(originals[BeamEngine],
+                                   lambda e: 3 * e.cfg.num_decoder_layers + 1)
+    try:
+        yield tally
+    finally:
+        for cls, original in originals.items():
+            cls._one_step = original
 
 
 def serving_t5(route: str):
@@ -1139,13 +1190,15 @@ def run_slice(dev):
 
     batches = 3 + 1                              # 8 + 8 + 4 requests, then 1 over HTTP
     steps = cfg.max_length - 1
+    sites = service._generate.__self__.norm_sites
     log(f"  20 requests in {seconds:.3f} s: {20 / seconds:.2f} answers/s "
         f"(host clock, 3 batches, bf16, one request per answer)")
-    # K3's wrapper runs at step 0; the warm-up captured the later steps'
-    # graph, whose replays call no wrapper (their K3 runs: the last phase)
+    # K3's and K8's wrappers run at step 0; the warm-up captured the later
+    # steps' graph, whose replays call no wrapper (their runs: the last phase)
     check_counts("the served run (streamed route)", launches["streamed"],
                  {"streamed_attention": batches * t5.num_layers,
-                  "fused_decode_cross_attention": batches * t5.num_decoder_layers})
+                  "fused_decode_cross_attention": batches * t5.num_decoder_layers,
+                  "add_rms_norm": batches * sites})
     if tokens.shape != (20, steps) or tokens.min() < 0 or tokens.max() >= t5.vocab_size:
         raise AssertionError(f"bad token array {tokens.shape} "
                              f"[{tokens.min()}, {tokens.max()}]")
@@ -1159,7 +1212,12 @@ def run_slice(dev):
     plain = LakoService(plain_cfg, serving_t5("plain"), params, tok, device=dev)
     reset_counts()
     _, plain_tokens = plain.generate_tokens(requests)
-    check_counts("the no-kernel configuration", read_counts(), {})
+    # no K1 or K3; K8 at each step the host runs: 3 step 0s, the warm-up
+    # step and the steps the first batch's capture records
+    engine = plain._generate.__self__
+    check_counts("the no-kernel configuration (K8 the one norm route)", read_counts(),
+                 {"add_rms_norm": sites * (3 + engine._warmed + captured_steps(engine))})
+    del engine
 
     ds = ReaderDataset(examples, cfg.data)
     batch = ReaderCollator(cfg.data, tok)([ds[i] for i in range(cfg.batch_size)])
@@ -1220,7 +1278,8 @@ def run_slice(dev):
         f"3 batches)")
     check_counts("the served run (whole-block route)", launches["fused"],
                  {"fused_attention": 3 * fused_t5.num_layers,
-                  "fused_decode_cross_attention": 3 * fused_t5.num_decoder_layers})
+                  "fused_decode_cross_attention": 3 * fused_t5.num_decoder_layers,
+                  "add_rms_norm": 3 * sites})
     log(f"  whole-block route (K4): token agreement with the streamed route (K1): "
         f"{float((fused_tokens == tokens).mean()):.4f}")
     agree("whole-block route (K4)", fused_tokens, fused)
@@ -1334,7 +1393,8 @@ def run_decode(dev, shared):
     require_same("chunked against full length", chunked_tokens, served)
     check_counts("the chunked run (graphs captured before it)", launches,
                  {"streamed_attention": len(chunks) * t5.num_layers,
-                  "fused_decode_cross_attention": len(chunks) * layers})
+                  "fused_decode_cross_attention": len(chunks) * layers,
+                  "add_rms_norm": len(chunks) * chunked._generate.__self__.norm_sites})
     eager = eager_twin(chunked)
     eager.generate_tokens(requests[:1])
     eager_tokens, seconds, eager_chunks = served_run(eager, requests)
@@ -1471,10 +1531,12 @@ def run_profiled(dev):
     """The chunked service (decode_chunk_size=16, int8 K/V through K3) built
     anew, serving the 20 requests under torch.profiler: the kernel wrappers'
     counts (step 0 of each batch, the warm-up step and the launches each
-    capture records) and the K3 kernels that really ran, graph replays
-    included; then the kernels of one decode step of its engine, run
-    eagerly. The script's last phase, so that no timed phase runs after a
-    profiler in the process. Returns the served run's launches."""
+    capture records), the K3 and K8 kernels that really ran, graph replays
+    included, and ``engine.norm_sites`` as the recorder counted it; then the
+    kernels of one decode step of its engine, run eagerly. The script's last
+    phase, so that no timed phase runs after a profiler in the process.
+    Returns the served run's launches."""
+    from lako_tpu_torch.core import profiling
     from lako_tpu_torch.serve import LakoService
 
     cfg, params, tok, requests = serving_setup(dev)
@@ -1483,19 +1545,30 @@ def run_profiled(dev):
     service = LakoService(dataclasses.replace(cfg, decode_chunk_size=16), t5, params, tok,
                           device=dev)
     engine = service._generate.__self__
+    sites = engine.norm_sites
     reset_counts()
+    t0 = profiling.now()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         chunks = served_run(service, requests)[2]
         torch.cuda.synchronize()
         drain_trace()
     launches = read_counts()
     k3_runs = device_kernels(prof, K3_KERNEL)
+    k8_runs = device_kernels(prof, K8_KERNEL)
     drained = device_kernels(prof, DRAIN_KERNEL)
+    recorded = [n for t, name, n in profiling.snapshot()["counts"]
+                if t >= t0 and name == "engine.norm_sites"]
     st = next(iter(engine._batches.values()))
-    captured = sum(n for _, n in st.chunks)
+    captured = captured_steps(engine)
     check_counts("the chunked service's first 20 requests (profiled)", launches,
                  {"streamed_attention": len(chunks) * t5.num_layers,
-                  "fused_decode_cross_attention": layers * (len(chunks) + 1 + captured)})
+                  "fused_decode_cross_attention": layers * (len(chunks) + 1 + captured),
+                  "add_rms_norm": sites * (len(chunks) + 1 + captured)})
+    log(f"  engine.norm_sites as the recorder counted it at each of the {len(chunks)} "
+        f"prefills: {recorded} (t5-large: 2 x {layers} layers + {len(engine.cross_slot)} "
+        f"cross-attending + the final norm = {T5_LARGE_NORM_SITES})")
+    if sites != T5_LARGE_NORM_SITES or recorded != [sites] * len(chunks):
+        raise AssertionError(f"engine.norm_sites read {recorded}, the engine {sites}")
     run_steps = [1 + min(steps - 1, 16 * c) for c in chunks]
     want_runs = layers * (sum(run_steps) + 1)
     log(f"  K3 kernels that ran on the card in that run (torch.profiler trace, graph "
@@ -1506,6 +1579,12 @@ def run_profiled(dev):
         f"filler kernels after the run")
     if k3_runs != want_runs:
         raise AssertionError(f"K3 ran {k3_runs} times on the card, expected {want_runs}")
+    want_k8 = sites * (sum(run_steps) + 1)
+    log(f"  K8 kernels that ran on the card in that run: {k8_runs}; expected {sites} sites x "
+        f"the same {sum(run_steps) + 1} steps = {want_k8}; the wrapper counted "
+        f"{launches['add_rms_norm']}")
+    if k8_runs != want_k8:
+        raise AssertionError(f"K8 ran {k8_runs} times on the card, expected {want_k8}")
     with torch.inference_mode(), torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         engine._run_chunk(st, 1, 1)
@@ -1515,7 +1594,8 @@ def run_profiled(dev):
         f"through K3), run eagerly: {len(kernels)} kernels, "
         f"{sum(e.time_range.elapsed_us() for e in kernels) / 1e3:.4f} ms of kernel time "
         f"(torch.profiler)")
-    return {"chunked": dict(launches, device_launches=k3_runs)}
+    return {"chunked": dict(launches, device_launches={"fused_decode_cross_attention": k3_runs,
+                                                       "add_rms_norm": k8_runs})}
 
 
 def train_fixture():
@@ -1801,6 +1881,64 @@ def run_adafactor(dev, size: str = K7_SIZE):
     return out
 
 
+def check_add_rms_norm(dev):
+    """K8 at the decode step's norm sites against its plain version (the
+    nine-launch chain the engines ran before it), with and without a delta:
+    x_new bitwise, xn within one bf16 ulp on at most K8_ULP_SHARE of the
+    elements, bitwise the same in a second launch and replayed from a CUDA
+    graph; timed beside its byte bound and the plain chain at each shape.
+    Returns the summary entry of eval-large's shape, (128, 1024)."""
+    from lako_tpu_torch.ops import add_rms_norm as k8
+
+    log("K8 add_rms_norm (csrc/add_rms_norm.cu) vs plain (x + delta, then the RMS norm):")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    timed = {}
+    for B, H, w_dtype in K8_SHAPES:
+        x = (torch.randn(B, H, generator=gen, device=dev) * 3).to(torch.bfloat16)
+        delta = torch.randn(B, H, generator=gen, device=dev).to(torch.bfloat16)
+        weight = (1 + 0.3 * torch.randn(H, generator=gen, device=dev)).to(w_dtype)
+        label = f"({B}, {H}) bf16, {str(w_dtype).removeprefix('torch.')} weight"
+        for d in (delta, None):
+            x_new, xn = k8.add_rms_norm(x, d, weight, K8_EPS)
+            again = k8.add_rms_norm(x, d, weight, K8_EPS)[1]
+            want_x, want = k8.add_rms_norm_reference(x, d, weight, K8_EPS)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = k8.add_rms_norm(x, d, weight, K8_EPS)[1]
+            graph.replay()
+            torch.cuda.synchronize()
+            a, b = xn.float(), want.float()
+            exp = torch.frexp(torch.maximum(a.abs(), b.abs()))[1]
+            ulp = torch.ldexp(torch.ones_like(a), exp - 8)      # bf16's, at the larger
+            ulps = (a - b).abs() / ulp
+            share = float((ulps > 0).float().mean())
+            err = float((a - b).abs().max())
+            same_x = bool(torch.equal(x_new, want_x))
+            repeat = bool(torch.equal(xn, again)) and bool(torch.equal(xn, replayed))
+            log(f"  {label}, {'with' if d is not None else 'without'} delta: x_new bitwise "
+                f"{same_x}; xn max {float(ulps.max()):.0f} bf16 ulp, {share:.5f} of the elements "
+                f"differ (max {K8_ULP_SHARE}), max abs err {err:.3e}; bitwise equal in a second "
+                f"launch and replayed from a CUDA graph: {repeat}")
+            if not (same_x and float(ulps.max()) <= 1 and share <= K8_ULP_SHARE and repeat):
+                raise AssertionError(f"K8 disagrees with its plain version at {label}")
+            del graph, replayed
+        kern = device_ms(lambda: k8.add_rms_norm(x, delta, weight, K8_EPS))
+        plain = device_ms(lambda: k8.add_rms_norm_reference(x, delta, weight, K8_EPS))
+        kern = (kern + device_ms(lambda: k8.add_rms_norm(x, delta, weight, K8_EPS))) / 2
+        plain = (plain + device_ms(lambda: k8.add_rms_norm_reference(x, delta, weight,
+                                                                     K8_EPS))) / 2
+        n_bytes, ops = nbytes(x, delta, x_new, xn, weight), 4 * B * H
+        bound_ms, bound_by = bound(n_bytes, ops, "f32")
+        log(f"  time at {label}: kernel {kern * 1e3:.2f} us, {kern / bound_ms:.1f}x its bound "
+            f"{bound_ms * 1e3:.2f} us by {bound_by} ({n_bytes / 1e6:.3f} MB); the plain chain "
+            f"{plain * 1e3:.2f} us (device time per call, CUDA graph of 20 calls)")
+        timed[B, H, w_dtype] = (err, kern, plain, n_bytes, ops)
+    err, kern, plain, n_bytes, ops = timed[128, 1024, torch.bfloat16]
+    return entry("add_rms_norm", "lako_tpu_torch/csrc/add_rms_norm.cu",
+                 "none: XLA fuses lako_tpu/models/t5/engine.py:202 into the step", err, kern,
+                 plain, n_bytes, ops, "f32", None)
+
+
 def check_adam8_step(dev, grads):
     """AdamW8bit moment updates of every t5-large parameter tensor from the
     same gradients: scale_by_adam_8bit("auto") on the card, one K5 launch an
@@ -1877,8 +2015,9 @@ def run_train_reader(dev, cfg, tok, train, evals, route):
         f"{len(train)} train / {len(evals)} eval examples, {cfg.epochs} epochs")
     reset_counts()
     t0 = time.perf_counter()
-    result = train_reader(cfg, train, evals, tok, t5_config=t5, save_checkpoints=False,
-                          device=dev)
+    with norm_site_tally() as sites:
+        result = train_reader(cfg, train, evals, tok, t5_config=t5, save_checkpoints=False,
+                              device=dev)
     seconds = time.perf_counter() - t0
     launches = read_counts()
     steps = result.final_step
@@ -1888,6 +2027,7 @@ def run_train_reader(dev, cfg, tok, train, evals, route):
     expected[attention] += t5.num_layers * eval_batches
     if cfg.optim.optim == "adamw8bit":
         expected["fused_adam8_update_leaves"] = steps   # one launch over every tensor
+    expected["add_rms_norm"] = sites[0]                 # the evaluations' decode steps
     log(f"  {steps} steps and {len(result.history)} evals in {seconds:.1f} s; history "
         f"{[{k: round(v, 4) for k, v in h.items()} for h in result.history]}")
     check_counts(f"train_reader ({route} route, {cfg.optim.optim})", launches, expected)
@@ -2107,8 +2247,9 @@ def run_reader_pipeline(dev):
         reset_counts()
         t0 = time.perf_counter()
         try:
-            trained = cli(["train-reader", *common, "--train-data", str(tmp / "train.json"),
-                           "--eval-data", str(tmp / "eval.json")])
+            with norm_site_tally() as sites:
+                trained = cli(["train-reader", *common, "--train-data",
+                               str(tmp / "train.json"), "--eval-data", str(tmp / "eval.json")])
         finally:
             stages.train_reader, reader.save_checkpoint = train_reader, save_checkpoint
         seconds = time.perf_counter() - t0
@@ -2124,6 +2265,7 @@ def run_reader_pipeline(dev):
         expected = {n: c * t5.num_layers * steps for n, c in STEP_LAUNCHES["streamed"].items()}
         expected["streamed_attention"] += t5.num_layers * eval_batches
         expected["fused_adam8_update_leaves"] = steps
+        expected["add_rms_norm"] = sites[0]
         check_counts("train-reader (streamed route, adamw8bit)", launches, expected)
         losses = [h["loss"] for h in trained["history"]]
         if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
@@ -2810,7 +2952,8 @@ def run_served_retrieval(dev):
     launches = read_counts()
     check_counts("the served run with retrieval (whole-block route)", launches,
                  {"fused_attention": 3 * t5.num_layers,
-                  "fused_decode_cross_attention": 3 * t5.num_decoder_layers})
+                  "fused_decode_cross_attention": 3 * t5.num_decoder_layers,
+                  "add_rms_norm": 3 * service._generate.__self__.norm_sites})
 
     # the facts against a float64 top-n_context of the same question embeddings
     k = cfg.n_context
@@ -3002,14 +3145,15 @@ def run_lako_loop(dev):
 
         reset_counts()
         t0 = time.perf_counter()
-        out = cli(["full-loop", "--workdir", str(tmp / "loop"),
-                   "--reader-config", str(tmp / "reader_cfg.json"),
-                   "--retriever-config", str(tmp / "retriever_cfg.json"),
-                   "--t5-config", str(tmp / "t5_cfg.json"), "--train-data",
-                   str(tmp / "train.json"), "--eval-data", str(tmp / "eval.json"),
-                   "--corpus", str(tmp / "corpus.json"), "--tokenizer", str(tmp / "tok.json"),
-                   "--bert-tokenizer", str(tmp / "btok.json"), "--iterations", "2",
-                   "--fact-ablation", *device])
+        with norm_site_tally() as sites:
+            out = cli(["full-loop", "--workdir", str(tmp / "loop"),
+                       "--reader-config", str(tmp / "reader_cfg.json"),
+                       "--retriever-config", str(tmp / "retriever_cfg.json"),
+                       "--t5-config", str(tmp / "t5_cfg.json"), "--train-data",
+                       str(tmp / "train.json"), "--eval-data", str(tmp / "eval.json"),
+                       "--corpus", str(tmp / "corpus.json"), "--tokenizer",
+                       str(tmp / "tok.json"), "--bert-tokenizer", str(tmp / "btok.json"),
+                       "--iterations", "2", "--fact-ablation", *device])
         loop_s = time.perf_counter() - t0
         launches = read_counts()
         history = out["history"]
@@ -3021,6 +3165,7 @@ def run_lako_loop(dev):
         expected = {n: c * t5.num_layers * sum(steps)
                     for n, c in STEP_LAUNCHES["streamed"].items()}
         expected["streamed_attention"] += t5.num_layers * eval_batches
+        expected["add_rms_norm"] = sites[0]
         log(f"  full-loop: 2 iterations in {loop_s:.1f} s; reader steps {steps}; history "
             + json.dumps([{k: v for k, v in h.items() if k != "diagnostics"} for h in history]))
         log(f"  diagnostics: {json.dumps([h['diagnostics'] for h in history])}")
@@ -3408,8 +3553,9 @@ def run_hf_warm_start(dev):
         reset_counts()
         try:
             t0 = time.perf_counter()
-            out = cli(["train-reader", *common, "--train-data", str(tmp / "train.json"),
-                       "--eval-data", str(tmp / "eval.json")])
+            with norm_site_tally() as sites:
+                out = cli(["train-reader", *common, "--train-data", str(tmp / "train.json"),
+                           "--eval-data", str(tmp / "eval.json")])
             train_s = time.perf_counter() - t0
         finally:
             reader_mod.make_reader_train_step = make_step
@@ -3421,6 +3567,7 @@ def run_hf_warm_start(dev):
         expected["streamed_attention"] += arch.num_layers * eval_batches
         # K7: K7_LAUNCHES an update of each wrapped step (no accumulation)
         expected["fused_adafactor_update"] = K7_LAUNCHES * wrapped
+        expected["add_rms_norm"] = sites[0]                  # the evaluation's decode
         log(f"  train-reader --model-path <HF dir>, Adafactor lr {reader.optim.lr}, streamed "
             f"kernels, B=8, N={reader.data.n_passages}, L={reader.data.text_maxlength}, bf16, "
             f"f32 masters, remat: {out['steps']} steps and 1 evaluation in {train_s:.1f} s "
@@ -3447,10 +3594,12 @@ def run_hf_warm_start(dev):
 
         reset_counts()
         t0 = time.perf_counter()
-        ev = cli(["eval-reader", *common, "--eval-data", str(tmp / "eval.json")])
+        with norm_site_tally() as sites:
+            ev = cli(["eval-reader", *common, "--eval-data", str(tmp / "eval.json")])
         eval_s = time.perf_counter() - t0
         check_counts("eval-reader from the HF directory", read_counts(),
-                     {"streamed_attention": arch.num_layers * eval_batches})
+                     {"streamed_attention": arch.num_layers * eval_batches,
+                      "add_rms_norm": sites[0]})
         if ev["total"] != len(evals) or not 0.0 <= ev["em"] <= 1.0:
             raise AssertionError(f"eval-reader: {ev}")
         log(f"  eval-reader --model-path <HF dir>: {json.dumps(ev)} in {eval_s:.1f} s")
@@ -3485,7 +3634,8 @@ LAUNCHES_FROM = {"streamed_attention": ("training", "streamed"),
                  "fused_attention": ("training", "fused"),
                  "fused_adam8_update_leaves": ("training", "fused"),
                  "adam8_ema_fragment": ("floor_proof", "micro"),
-                 "fused_adafactor_update": ("hf", "streamed")}
+                 "fused_adafactor_update": ("hf", "streamed"),
+                 "add_rms_norm": ("profiled", "chunked")}
 
 
 def main() -> int:
@@ -3529,6 +3679,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels.append(run_adafactor(dev))            # K7 at t5-3b's leaves
+    kernels.append(check_add_rms_norm(dev))       # K8 at the decode step's norm sites
     runs = {"floor_proof": run_floor_proof(dev)}   # K5 and K6
     gc.collect()
     torch.cuda.empty_cache()
@@ -3561,11 +3712,12 @@ def main() -> int:
     for entry_ in kernels:
         phase, route = LAUNCHES_FROM[entry_["name"]]
         entry_["launches"] = runs[phase][route][entry_["name"]]
-        if entry_["name"] == "fused_decode_cross_attention":
-            entry_["device_launches"] = runs[phase][route]["device_launches"]
+        device = runs[phase][route].get("device_launches", {})
+        if entry_["name"] in device:
+            entry_["device_launches"] = device[entry_["name"]]
     log(f"launches: {({e['name']: e['launches'] for e in kernels})} (K1 and K2 from the "
-        f"streamed route's train_reader run, K3 from the chunked service's profiled run, "
-        f"with its device_launches from the trace, K4 and K5 from the whole-block route's "
+        f"streamed route's train_reader run, K3 and K8 from the chunked service's profiled "
+        f"run, with their device_launches from the trace, K4 and K5 from the whole-block route's "
         f"train_reader run, K6 from the floor proof, K7 from the HF warm start's Adafactor "
         f"train-reader run)")
     log(f"the whole script: {time.perf_counter() - t_script:.1f} s wall")

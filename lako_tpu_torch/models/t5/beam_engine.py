@@ -38,13 +38,13 @@ from lako_tpu_torch.models.t5.engine import (
     _logits,
     _mlp,
     _mm,
-    _rms,
     _take_embedding,
     engine_supported,
     stack_decoder_params,
 )
 from lako_tpu_torch.models.t5.layers import NEG_INF, top_k
 from lako_tpu_torch.models.t5.model import FiDT5
+from lako_tpu_torch.ops.add_rms_norm import add_rms_norm
 
 SELF_ATTN_IMPLS = ("allslots", "gather", "flat", "packed", "stepmajor", "fusedkv")
 
@@ -203,9 +203,10 @@ class BeamEngine:
         # positions > step select slot 0: the causal bias masks them
         onehot = (ancestry[:, :, None, :] == slots[:, None]).float()      # (B,Kq,Kc,S)
         self_pos_bias = self.relpos_rows[step]
-        x = _take_embedding(sd.embedding, tok, dtype)                    # (B,K,H)
+        x = _take_embedding(sd.embedding, tok, dtype).reshape(B * K, H)
+        delta = None    # each block's output joins x at the next norm site
         for i in range(cfg.num_decoder_layers):
-            xn = _rms(x.reshape(B * K, H), sd.ln_self[i], eps, dtype)
+            x, xn = add_rms_norm(x, delta, sd.ln_self[i], eps)
             qkv = _mm(xn, _layer(sd.wqkv_self, i), dtype).reshape(B, K, 3, h, d)
             q, k_new, v_new = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
             out = self._self_attention(q, k_new, v_new, sk[i], sv[i], step, self_pos_bias,
@@ -213,11 +214,10 @@ class BeamEngine:
             # append this step's K/V, each slot into its own row
             sk[i, ..., step] = k_new.permute(0, 2, 3, 1)
             sv[i, ..., step] = v_new.permute(0, 2, 3, 1)
-            x = x + _mm(out.reshape(B * K, h * d), _layer(sd.wo_self, i),
-                        dtype).reshape(B, K, H)
+            delta = _mm(out.reshape(B * K, h * d), _layer(sd.wo_self, i), dtype)
 
             # cross-attention: per-example K/V, the beam axis rides the query
-            xn = _rms(x.reshape(B * K, H), sd.ln_cross[i], eps, dtype)
+            x, xn = add_rms_norm(x, delta, sd.ln_cross[i], eps)
             qc = _mm(xn, _layer(sd.wq_cross, i), dtype).reshape(B, K, h, d)
             if ck.shape[2] == h:
                 cl = torch.einsum("bqhd,bhdk->bqhk", qc, ck[i]).float()
@@ -228,11 +228,11 @@ class BeamEngine:
                 co = torch.einsum("bqhk,bhdk->bqhd", cp, cv[i])
             else:
                 co = torch.einsum("bqhk,bdk->bqhd", cp, cv[i][:, 0])
-            x = x + _mm(co.reshape(B * K, h * d), _layer(sd.wo_cross, i),
-                        dtype).reshape(B, K, H)
-            x = _mlp(sd, cfg, i, x.reshape(B * K, H), dtype).reshape(B, K, H)
-        x = _rms(x, sd.final_ln, eps, dtype)
-        return _logits(sd, cfg, x.reshape(B * K, H), dtype).reshape(B, K, -1)
+            delta = _mm(co.reshape(B * K, h * d), _layer(sd.wo_cross, i), dtype)
+            x, xn = add_rms_norm(x, delta, sd.ln_mlp[i], eps)
+            delta = _mlp(sd, cfg, i, xn, dtype)
+        _, x = add_rms_norm(x, delta, sd.final_ln, eps)
+        return _logits(sd, cfg, x, dtype).reshape(B, K, -1)
 
     # ---- beam search loop --------------------------------------------------
 

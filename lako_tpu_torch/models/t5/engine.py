@@ -48,8 +48,14 @@ Each generate call records a stream span ``engine.prefill`` (encoder, cross
 K/V, step 0) and one ``engine.replay`` a chunk, whose host time is the
 graph's launch, and counts ``engine.captures`` and ``engine.replays``
 (core/profiling.py), and at its prefill ``engine.cross_kv_bytes`` (the bytes
-of cross K/V loaded into the batch's buffers) and ``engine.cross_layers``
-(the decoder layers whose cross-attention a step runs).
+of cross K/V loaded into the batch's buffers), ``engine.cross_layers``
+(the decoder layers whose cross-attention a step runs) and
+``engine.norm_sites`` (the norm sites a step runs).
+
+Every residual add of a step happens inside the next norm site's
+``add_rms_norm`` (ops/add_rms_norm.py, one launch a site on the card): the
+embedding into the first self-attention's norm, each block's output into
+the next block's norm, the last MLP's into the final norm.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from lako_tpu_torch.models.t5.layers import (
     relative_position_bucket,
 )
 from lako_tpu_torch.models.t5.model import FiDT5, model_device
+from lako_tpu_torch.ops.add_rms_norm import add_rms_norm
 from lako_tpu_torch.ops.decode_cross_attn import fused_decode_cross_attention
 
 # The chunking cost model, from one run of chip_smoke.py's graphed decode at
@@ -246,20 +253,15 @@ def stack_decoder_params(model: FiDT5, dtype: torch.dtype,
     )
 
 
-def _rms(x, weight, eps: float, dtype):
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(dtype) * weight.to(dtype)
-
-
-def _mlp(sd: StackedDecoder, cfg: T5Config, i: int, x, dtype):
-    xn = _rms(x, sd.ln_mlp[i], cfg.layer_norm_epsilon, dtype)
+def _mlp(sd: StackedDecoder, cfg: T5Config, i: int, xn, dtype):
+    """Layer ``i``'s feed-forward block on the normalised ``xn``: the delta
+    its residual add takes."""
     if sd.wi is not None:
         act = activation(cfg.feed_forward_proj)(_mm(xn, _layer(sd.wi, i), dtype))
     else:
         gact = activation(cfg.feed_forward_proj.removeprefix("gated-"))
         act = gact(_mm(xn, _layer(sd.wi_0, i), dtype)) * _mm(xn, _layer(sd.wi_1, i), dtype)
-    return x + _mm(act, _layer(sd.wo_mlp, i), dtype)
+    return _mm(act, _layer(sd.wo_mlp, i), dtype)
 
 
 def _decode_relpos_rows(relpos: torch.Tensor, cfg: T5Config, steps: int) -> torch.Tensor:
@@ -398,6 +400,9 @@ class DecodeEngine:
         # decoder layer -> its slot in the cross-attention stacks
         self.cross_slot = {i: j for j, i in enumerate(
             i for i in range(cfg.num_decoder_layers) if cfg.has_cross_attention(i))}
+        # add_rms_norm launches a step: before each layer's self-attention,
+        # cross-attention and MLP, and the final norm
+        self.norm_sites = 2 * cfg.num_decoder_layers + len(self.cross_slot) + 1
         self.sd = stack_decoder_params(model, self.dtype, weights_dtype)
         self.relpos_rows = _decode_relpos_rows(self.sd.relpos, cfg, self.steps)
         self._batches: Dict[Tuple[int, int], _Batch] = {}
@@ -504,9 +509,11 @@ class DecodeEngine:
         self_bias = self.relpos_rows[step].clone()              # (h, S)
         self_bias[:, step + 1:] = NEG_INF
         cross_logits = []
+        # each block's output joins the residual stream at the next norm site
+        delta = None
         for i in range(cfg.num_decoder_layers):
             # --- self-attention: cache holds steps 0..step-1; this step fresh
-            xn = _rms(x, sd.ln_self[i], eps, dtype)
+            x, xn = add_rms_norm(x, delta, sd.ln_self[i], eps)
             qkv = _mm(xn, _layer(sd.wqkv_self, i), dtype).reshape(B, 3, h, d)
             q, k_new, v_new = qkv[:, 0], qkv[:, 1], qkv[:, 2]
             logits = torch.einsum("bhd,bhds->bhs", q, sk[i]).float()
@@ -516,20 +523,21 @@ class DecodeEngine:
             sk[i, ..., step] = k_new
             sv[i, ..., step] = v_new
             out = out + probs[..., step:step + 1] * v_new
-            x = x + _mm(out.reshape(B, h * d), _layer(sd.wo_self, i), dtype)
+            delta = _mm(out.reshape(B, h * d), _layer(sd.wo_self, i), dtype)
 
             # --- cross-attention against the hoisted K/V, where the layer has it
             j = self.cross_slot.get(i)
             if j is not None:
-                xn = _rms(x, sd.ln_cross[j], eps, dtype)
+                x, xn = add_rms_norm(x, delta, sd.ln_cross[j], eps)
                 qc = _mm(xn, _layer(sd.wq_cross, j), dtype).reshape(B, h, d)
                 co, cl = self._cross_attention(j, qc, st, collect)
                 if collect:
                     cross_logits.append(cl)
-                x = x + _mm(co.reshape(B, h * d), _layer(sd.wo_cross, j), dtype)
-            x = _mlp(sd, cfg, i, x, dtype)
+                delta = _mm(co.reshape(B, h * d), _layer(sd.wo_cross, j), dtype)
+            x, xn = add_rms_norm(x, delta, sd.ln_mlp[i], eps)
+            delta = _mlp(sd, cfg, i, xn, dtype)
 
-        x = _rms(x, sd.final_ln, eps, dtype)
+        _, x = add_rms_norm(x, delta, sd.final_ln, eps)
         xl = torch.stack(cross_logits, dim=1) if collect else None
         return _logits(sd, cfg, x, dtype), xl
 
@@ -604,6 +612,7 @@ class DecodeEngine:
             st = self._batch(self._project_cross_kv(enc), cross_bias)
             profiling.count("engine.cross_kv_bytes", st.cross_kv_bytes)
             profiling.count("engine.cross_layers", len(self.cross_slot))
+            profiling.count("engine.norm_sites", self.norm_sites)
 
             start = torch.full_like(st.tok, cfg.decoder_start_token_id)
             logits0, xl0 = self._one_step(start, 0, st, self.collect)

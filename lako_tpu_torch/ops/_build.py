@@ -1,8 +1,10 @@
 """Build the CUDA kernels under ``lako_tpu_torch/csrc`` at first use.
 
-The ``csrc/*.cu`` files make two shared libraries with a plain C
+The ``csrc/*.cu`` files make three shared libraries with a plain C
 interface (:data:`LIBRARIES`): the fused Adafactor update (K7) alone, since
-a training run with Adafactor binds nothing else, and every other kernel.
+a training run with Adafactor binds nothing else; the decode step's
+residual add and RMS norm (K8) alone, since a greedy decode binds nothing
+else; and every other kernel.
 Each holds ``common.cu`` (error strings, graph holds). A library's sources
 are compiled by one ``nvcc`` process each, all started together, linked,
 and loaded with ``ctypes`` when one of its entries is first bound. It lands
@@ -55,7 +57,7 @@ HOST_LDFLAGS = ("-shared", "-pthread")
 
 # a library's name, and the .cu files it holds besides common.cu; "kernels"
 # holds every file that no other library names
-LIBRARIES = {"kernels": None, "adafactor": ("adafactor.cu",)}
+LIBRARIES = {"kernels": None, "adafactor": ("adafactor.cu",), "norm": ("add_rms_norm.cu",)}
 
 _lock = threading.Lock()
 _libraries: dict = {}   # the loaded CDLLs, by library name, once built

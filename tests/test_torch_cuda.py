@@ -19,6 +19,7 @@ from lako_tpu_torch.models.t5 import init_fid_t5
 from lako_tpu_torch.models.t5.engine import DecodeEngine, _quantize_kv
 from lako_tpu_torch.models.t5.layers import Dropout, _mix
 from lako_tpu_torch.ops import adam8_kernel as k5
+from lako_tpu_torch.ops import add_rms_norm as k8
 from lako_tpu_torch.ops import decode_cross_attn as k3
 from lako_tpu_torch.ops import flash_attention as k4
 from lako_tpu_torch.ops import flash_streamed as k1
@@ -396,13 +397,13 @@ def _tiny_decode_model(dev, seed=0):
     return model, ids, mask
 
 
-def _k3_runs(fn):
-    """fn's result and the K3 kernels that ran on the card while it ran
-    (torch.profiler, graph replays included)."""
+def _kernel_runs(fn, kernel="decode_cross_kernel"):
+    """fn's result and the kernels named ``kernel`` (K3's by default) that
+    ran on the card while it ran (torch.profiler, graph replays included)."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    return out, sum("decode_cross_kernel" in e.name for e in prof.events()
+    return out, sum(kernel in e.name for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
@@ -428,11 +429,11 @@ def test_graphed_chunks_equal_eager(cuda_device, kw, chunk_size):
     layers = model.config.num_decoder_layers
     for first, batch in ((True, [0, 1, 2, 3]), (False, [3, 1, 2, 0])):
         before = k3.fused_decode_cross_attention.launches
-        (want, _), eager_runs = _k3_runs(lambda: eager.generate(ids[batch], mask[batch]))
+        (want, _), eager_runs = _kernel_runs(lambda: eager.generate(ids[batch], mask[batch]))
         eager_k3 = k3.fused_decode_cross_attention.launches - before
         captured = _captured_steps(graphed)
         before = k3.fused_decode_cross_attention.launches
-        (got, _), graphed_runs = _k3_runs(lambda: graphed.generate(ids[batch], mask[batch]))
+        (got, _), graphed_runs = _kernel_runs(lambda: graphed.generate(ids[batch], mask[batch]))
         graphed_k3 = k3.fused_decode_cross_attention.launches - before
         torch.testing.assert_close(got, want, rtol=0, atol=0)
         assert graphed.last_chunks == eager.last_chunks
@@ -504,16 +505,17 @@ def _step_kernels(engine, ids, mask) -> int:
 
 
 # A replayed step of the homogeneous t5-large-shaped decoder below (24
-# layers), before the engine took FiDO decoders: counted on an H100 80GB HBM3
-# by _step_kernels against the engine that refused a cross_attention_stride
-# (10,906 activities in 8 steps; the engine that takes FiDO: the same).
-T5_LARGE_STEP_KERNELS = 1363
+# layers), counted by _step_kernels on an H100 80GB HBM3: 1,363 activities
+# with each residual add and RMS norm apart (the same before and after the
+# engine took FiDO decoders), 584 fewer with each site one add_rms_norm
+# launch (73 sites of 8 or 9 activities, the final norm's 10, become 73).
+T5_LARGE_STEP_KERNELS = 779
 
 
 def test_homogeneous_step_launches_the_same_kernels(cuda_device):
-    """A t5-large-shaped decoder's captured step launches the kernels it
-    launched before FiDO decoders ran on the engine; a FiDO stride of 6 at
-    the same widths launches none of cross-attention's in 20 of 24 layers."""
+    """A t5-large-shaped decoder's captured step launches the kernels
+    counted above; a FiDO stride of 6 at the same widths launches none of
+    cross-attention's in 20 of 24 layers."""
     base = dict(vocab_size=32128, d_model=1024, d_kv=64, d_ff=4096, num_layers=1,
                 num_decoder_layers=24, num_heads=16, dropout_rate=0.0)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -525,8 +527,76 @@ def test_homogeneous_step_launches_the_same_kernels(cuda_device):
         counts[name] = _step_kernels(DecodeEngine(model, max_length=10), ids, mask)
         del model
     assert counts["t5-large"] == T5_LARGE_STEP_KERNELS, counts
-    # a cross block's 17 activities, in each of the 20 layers that have none
-    assert counts["t5-large"] - counts["fido"] == 20 * 17, counts
+    # a cross block's 9 activities (its norm site, the q and o projections,
+    # the attention's 6), in each of the 20 layers that have none
+    assert counts["t5-large"] - counts["fido"] == 20 * 9, counts
+
+
+def _ulps_bf16(a, b):
+    """|a - b| in units of the last place of the larger of the two, bf16."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return (a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)
+
+
+@pytest.mark.parametrize("dtype,weight_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32)], ids=["bf16", "bf16-f32-weight", "f32"])
+@pytest.mark.parametrize("H", [8, 1000, 1024, 2048, 8192])
+@pytest.mark.parametrize("B", [1, 8, 128])
+def test_add_rms_norm_kernel_matches_plain(cuda_device, B, H, dtype, weight_dtype):
+    """K8 against its plain version on the card, with and without delta:
+    x_new bitwise; xn (the sums of squares taken in another order) within
+    one bf16 ulp on at most 1% of the elements, f32 within 4e-6 relative;
+    two launches bitwise equal, each counted."""
+    gen = torch.Generator(device=cuda_device).manual_seed(B * H)
+    x = (torch.randn(B, H, generator=gen, device=cuda_device) * 3).to(dtype)
+    delta = torch.randn(B, H, generator=gen, device=cuda_device).to(dtype)
+    weight = (1 + 0.3 * torch.randn(H, generator=gen, device=cuda_device)).to(weight_dtype)
+    for d in (delta, None):
+        before = k8.add_rms_norm.launches
+        x_new, xn = k8.add_rms_norm(x, d, weight, 1e-6)
+        again = k8.add_rms_norm(x, d, weight, 1e-6)[1]
+        torch.cuda.synchronize()
+        assert k8.add_rms_norm.launches == before + 2
+        want_x, want = k8.add_rms_norm_reference(x, d, weight, 1e-6)
+        assert torch.equal(x_new, want_x) and (d is not None or x_new is x)
+        assert torch.equal(xn, again) and xn.dtype == dtype
+        if dtype == torch.bfloat16:
+            ulps = _ulps_bf16(xn, want)
+            assert float(ulps.max()) <= 1 and float((ulps > 0).float().mean()) <= 0.01
+        else:
+            torch.testing.assert_close(xn, want, rtol=4e-6, atol=0)
+
+
+@pytest.mark.parametrize("model_of", ["t5-f32", "fido-bf16"])
+def test_graphed_decode_runs_the_norm_kernel(cuda_device, model_of):
+    """Every norm site of a decode step is one K8 launch, eager and in the
+    replayed graph: the profiler counts norm_sites kernels a step, and the
+    graphed loop's tokens are the eager loop's."""
+    if model_of == "t5-f32":
+        model, ids, mask = _tiny_decode_model(cuda_device)
+    else:
+        model, ids, mask = _fido_decode_model(cuda_device, True, torch.bfloat16)
+    eager = DecodeEngine(model, max_length=10, cuda_graphs=False)
+    graphed = DecodeEngine(model, max_length=10)
+    sites = eager.norm_sites
+    assert sites == 3 * model.config.num_decoder_layers + 1 - (
+        model.config.num_decoder_layers - len(eager.cross_slot))
+    for first in (True, False):
+        before = k8.add_rms_norm.launches
+        (want, _), eager_runs = _kernel_runs(lambda: eager.generate(ids, mask),
+                                             "add_rms_norm_kernel")
+        assert eager_runs == k8.add_rms_norm.launches - before == sites * 9
+        before = k8.add_rms_norm.launches
+        (got, _), graphed_runs = _kernel_runs(lambda: graphed.generate(ids, mask),
+                                              "add_rms_norm_kernel")
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        # step 0 eager; the first batch also one warm-up step and the capture
+        warm = sites if first else 0
+        assert graphed_runs == sites * 9 + warm
+        assert k8.add_rms_norm.launches - before == sites * (1 + (9 if first else 0))
+    assert len(torch.unique(want)) > 1
 
 
 def test_int8mxu_products_exact_past_1040_keys(cuda_device):

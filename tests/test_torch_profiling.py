@@ -40,7 +40,7 @@ SERVE_SPANS = {"serve.queue", "serve.batch", "serve.retrieve", "serve.collate", 
                "serve.detokenize", "engine.prefill", "engine.replay"}
 TRAIN_SPANS = {"train.fwd_bwd", "train.optimizer"}
 COUNTERS = {"serve.batches", "serve.requests", "engine.captures", "engine.replays",
-            "engine.cross_kv_bytes", "engine.cross_layers"}
+            "engine.cross_kv_bytes", "engine.cross_layers", "engine.norm_sites"}
 
 
 def _since(t0):
